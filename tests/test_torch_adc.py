@@ -1,0 +1,102 @@
+"""The port's fused ADC scan + per-slot top-kp (plain PyTorch version)
+against the JAX package's ``adc_topk_xla(transposed=True)`` and
+``adc_topk_pallas(interpret=True)``.
+
+Rows must be identical wherever a value is finite (against the Pallas
+kernel everywhere: both report row 0 for an empty slot, where XLA's
+top_k counts on through the masked rows). Values agree to rtol=1e-5:
+each side sums the M lookups in f32, in another order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from abstracts_search_tpu.ops.adc import adc_topk_pallas, adc_topk_xla
+from abstracts_search_tpu_torch.ops.adc import adc_topk
+
+
+def _inputs(ksub, m, seed, n_segs=6, seg=32, q=3, spq=4):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, ksub, (n_segs, seg, m), dtype=np.uint8)
+    wire = codes[..., 0::2] | (codes[..., 1::2] << 4) if ksub == 16 else codes
+    codes_t = np.ascontiguousarray(wire.transpose(0, 2, 1))     # [n_segs, MB, SEG]
+    luts = rng.standard_normal((q, m, ksub)).astype(np.float32)
+    n_slots = q * spq
+    seg_ids = rng.integers(0, n_segs, n_slots).astype(np.int32)
+    q_ids = np.repeat(np.arange(q, dtype=np.int32), spq)        # query-major
+    valid = rng.integers(0, seg + 1, n_slots).astype(np.int32)
+    valid[[0, 5]] = 0                                           # empty slots
+    valid[1] = seg                                              # a full one
+    return codes, codes_t, luts, seg_ids, q_ids, valid
+
+
+def _numpy_scores(codes, luts, seg_ids, q_ids, valid):
+    m = codes.shape[2]
+    lut = luts[q_ids]                                            # [S, M, ksub]
+    c = codes[seg_ids].astype(np.int64)                          # [S, SEG, M]
+    s = np.take_along_axis(lut[:, None], c[..., None], axis=3)[..., 0]
+    s = s.astype(np.float64).sum(-1)
+    s[np.arange(codes.shape[1])[None, :] >= valid[:, None]] = -np.inf
+    assert s.shape[-1] == codes.shape[1] and m == luts.shape[1]
+    return s
+
+
+@pytest.mark.parametrize("kp", [4, 32])
+@pytest.mark.parametrize("ksub,m", [(16, 8), (256, 4)], ids=["packed", "unpacked"])
+def test_matches_jax(ksub, m, kp):
+    codes, codes_t, luts, seg_ids, q_ids, valid = _inputs(ksub, m, seed=ksub + kp)
+    v, rows = adc_topk(*(torch.from_numpy(a) for a in (codes_t, luts, seg_ids, q_ids,
+                                                       valid)), kp, impl="torch")
+    v, rows = v.numpy(), rows.numpy()
+    jargs = tuple(jnp.asarray(a) for a in (codes_t, luts, seg_ids, q_ids, valid))
+    xv, xr = (np.asarray(a) for a in adc_topk_xla(*jargs, kp, transposed=True))
+    pv, pr = (np.asarray(a) for a in adc_topk_pallas(*jargs, kp, interpret=True))
+    live = np.isfinite(v)
+    for ov, orow in ((xv, xr), (pv, pr)):
+        np.testing.assert_array_equal(np.isfinite(ov), live)
+        np.testing.assert_allclose(v[live], ov[live], rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(rows[live], orow[live])
+    np.testing.assert_array_equal(rows, pr)
+    # the empty slots are all -inf, and every winner is a valid row
+    assert np.isneginf(v[[0, 5]]).all()
+    assert (rows[live] < np.broadcast_to(valid[:, None], rows.shape)[live]).all()
+    # and the sums are the lookups' (float64 oracle)
+    ref = _numpy_scores(codes, luts, seg_ids, q_ids, valid)
+    np.testing.assert_allclose(v[live], np.take_along_axis(ref, rows, 1)[live],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_nibble_order():
+    """Byte j holds subspace 2j in its low nibble and 2j+1 in its high
+    nibble: swapping the nibbles must change the scores."""
+    codes, codes_t, luts, seg_ids, q_ids, valid = _inputs(16, 8, seed=3)
+    valid[:] = codes.shape[1]
+    args = [torch.from_numpy(a) for a in (codes_t, luts, seg_ids, q_ids, valid)]
+    v, rows = adc_topk(*args, 32, impl="torch")
+    ref = _numpy_scores(codes, luts, seg_ids, q_ids, valid)
+    np.testing.assert_allclose(v.numpy(), np.take_along_axis(ref, rows.numpy(), 1),
+                               rtol=1e-5, atol=1e-5)
+    swapped = ((codes_t & 15) << 4) | (codes_t >> 4)
+    args[0] = torch.from_numpy(np.ascontiguousarray(swapped))
+    vs, _ = adc_topk(*args, 32, impl="torch")
+    assert not np.allclose(vs.numpy(), v.numpy())
+
+
+def test_validates_args():
+    codes, codes_t, luts, seg_ids, q_ids, valid = _inputs(16, 8, seed=4)
+    args = [torch.from_numpy(a) for a in (codes_t, luts, seg_ids, q_ids, valid)]
+    with pytest.raises(ValueError):
+        adc_topk(*args, 33, impl="torch")                         # kp > SEG
+    with pytest.raises(ValueError):
+        adc_topk(args[0][:, :3], *args[1:], 4, impl="torch")       # bytes != M/2
+    with pytest.raises(ValueError):
+        adc_topk(*args, 4, impl="xla")
+
+
+def test_cuda_impl_refuses_cpu_tensors():
+    codes, codes_t, luts, seg_ids, q_ids, valid = _inputs(16, 8, seed=5)
+    args = [torch.from_numpy(a) for a in (codes_t, luts, seg_ids, q_ids, valid)]
+    with pytest.raises(ValueError, match="CUDA"):
+        adc_topk(*args, 4, impl="cuda")

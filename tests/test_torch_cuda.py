@@ -1,0 +1,92 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here needs a CUDA device and skips without one; run
+them on the card with
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m gpu -q
+
+(``chip_smoke.py`` makes the same checks at the production shapes.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from abstracts_search_tpu_torch.ops import adc, topk
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qn,n,n_valid,k", [(3, 1024, 1024, 10), (40, 2048, 1500, 64),
+                                            (5, 256, 7, 16), (9, 4096, 4096, 300)])
+def test_topk_kernel_matches_plain(cuda, dtype, qn, n, n_valid, k):
+    g = torch.Generator(device=cuda).manual_seed(qn + k)
+    q = torch.randn((qn, 64), device=cuda, generator=g).to(dtype)
+    # 40 distinct rows repeated: exact ties, broken by the lowest row
+    x = torch.randn((40, 64), device=cuda, generator=g)[
+        torch.randint(0, 40, (n,), device=cuda, generator=g)].to(dtype)
+    kv, ki = topk.streaming_topk(q, x, n_valid, k, chunk=256 if k <= 256 else 512,
+                                 impl="cuda")
+    pv, pi = topk.streaming_topk(q, x, n_valid, k, chunk=256 if k <= 256 else 512,
+                                 impl="torch")
+    torch.testing.assert_close(kv, pv, rtol=1e-5, atol=1e-5)
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("ksub,m", [(16, 16), (256, 8)])
+@pytest.mark.parametrize("seg,kp", [(32, 4), (256, 10), (512, 100)])
+def test_adc_kernel_matches_plain_bit_for_bit(cuda, ksub, m, seg, kp):
+    g = torch.Generator(device=cuda).manual_seed(seg + kp)
+    mb = m // 2 if ksub == 16 else m
+    codes = torch.randint(0, 256, (50, mb, seg), dtype=torch.uint8, device=cuda,
+                          generator=g)
+    luts = torch.randn((7, m, ksub), device=cuda, generator=g)
+    n_slots = 300
+    seg_ids = torch.randint(0, 50, (n_slots,), dtype=torch.int32, device=cuda, generator=g)
+    q_ids = (torch.arange(n_slots, device=cuda) * 7 // n_slots).int()
+    valid = torch.randint(0, seg + 1, (n_slots,), dtype=torch.int32, device=cuda,
+                          generator=g)
+    args = (codes, luts, seg_ids, q_ids, valid, kp)
+    kv, ki = adc.adc_topk(*args, impl="cuda")
+    pv, pi = adc.adc_topk(*args, impl="torch")
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+def test_index_on_the_card_matches_the_cpu(cuda):
+    from abstracts_search_tpu_torch.index import CSRLists, IVFPQIndex
+
+    rng = np.random.default_rng(0)
+    n_lists, d, m, seg = 64, 64, 16, 32
+    sizes = rng.integers(1, 200, n_lists)
+    cnt = -(-sizes // seg)
+    start = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    n_segs = int(cnt.sum())
+    seg_list = np.repeat(np.arange(n_lists), cnt)
+    valid = np.clip(sizes[seg_list] - (np.arange(n_segs) - start[seg_list]) * seg, 0, seg)
+    rows = np.arange(n_segs * seg, dtype=np.int32).reshape(n_segs, seg)
+    csr = CSRLists(data=rng.integers(0, 256, (n_segs, m // 2, seg), dtype=np.uint8),
+                   row_ids=rows, seg_valid=valid.astype(np.int32),
+                   seg_start=start.astype(np.int64), seg_cnt=cnt.astype(np.int32),
+                   seg_size=seg, n_lists=n_lists, n_rows=int(sizes.sum()),
+                   transposed=True)
+    cent = rng.standard_normal((n_lists, d)).astype(np.float32)
+    cent /= np.linalg.norm(cent, axis=1, keepdims=True)
+    pqc = 0.05 * rng.standard_normal((m, 16, d // m)).astype(np.float32)
+    rot = np.linalg.qr(rng.standard_normal((d, d)))[0].astype(np.float32)
+    q = rng.standard_normal((20, d)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        idx = IVFPQIndex(n_lists, d, pq_m=m, pq_nbits=4, seg_size=seg, chunk=64,
+                         device=dev)
+        idx.set_params(cent, pqc, rot)
+        idx._install(csr)
+        out[dev] = idx.search(q, 10, nprobe=8)
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=1e-5)
