@@ -2,15 +2,21 @@
 PyTorch and CUDA (NVIDIA Hopper, ``sm_90a``).
 
 A second package beside the JAX one, ported slice by slice. What runs
-here today is the serving path: hash-embedded queries -> ``IVFPQIndex``
-probe (hand-written streaming top-k kernel) -> fused ADC scan + per-slot
-top-k (hand-written kernel) -> ragged per-query merge -> host-side
-position resolution -> ``SearchEngine`` / HTTP.
+here today:
 
-- ``ops``    — the CUDA kernels (``csrc/``), their ctypes builder, and a
-               plain PyTorch version of each (CPU route, test oracle).
-- ``index``  — CSR list artifacts (same on-disk format 3) and the
-               IVF-PQ search index.
+- the serving path: hash-embedded queries -> ``IVFPQIndex`` probe
+  (hand-written streaming top-k kernel) -> ADC scan (fused scan +
+  per-slot top-k kernel over transposed lists, raw scan kernels over
+  row-major legacy lists) -> ragged per-query merge -> host-side
+  position resolution -> ``SearchEngine`` / HTTP;
+- flat search: ``FlatIndex`` (exact streaming top-k), and the fast-mode
+  top-k that ``bench.py``'s configuration runs.
+
+- ``ops``      — the CUDA kernels (``csrc/``), their ctypes builder, and a
+                 plain PyTorch version of each (CPU route, test oracle).
+- ``index``    — CSR list artifacts (same on-disk format 3), the IVF-PQ
+                 search index and the flat index.
+- ``parallel`` — the top-k merge over corpus parts.
 - ``models`` — the offline ``HashEmbedder``.
 - ``serve``  — search engine, micro-batcher, HTTP app.
 

@@ -18,8 +18,9 @@
 // coalesce. A packed lookup touches 16 consecutive words, so it is free
 // of bank conflicts. Each score is the sequential f32 sum over m = 0..M-1,
 // the same order the plain PyTorch version adds in, so the two agree bit
-// for bit. Selection is one pass: every row counts the rows that beat it
-// and, if that rank is below kp, writes itself to slot[rank].
+// for bit (adc_sum.cuh, shared with adc_scan.cu). Selection is one pass:
+// every row counts the rows that beat it and, if that rank is below kp,
+// writes itself to slot[rank].
 //
 // What bounds it: the codes read, MB * SEG bytes per slot (16 KiB at
 // MB 64, SEG 256), over 3.35 TB/s.
@@ -27,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "adc_sum.cuh"
 
 namespace {
 
@@ -57,35 +60,8 @@ __global__ void __launch_bounds__(THREADS) adc_topk_kernel(
     const uint8_t* tile = codes + (size_t)seg_ids[s] * mb * seg;
     const int vc = valid_cnt[s];
     for (int r = t; r < seg; r += THREADS) {
-      float acc = 0.f;
-      if (packed) {
-        int j = 0;
-        for (; j + 8 <= mb; j += 8) {
-          unsigned c[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) c[u] = tile[(size_t)(j + u) * seg + r];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            acc = acc + lut[(2 * (j + u)) * 16 + (c[u] & 15u)];
-            acc = acc + lut[(2 * (j + u) + 1) * 16 + (c[u] >> 4)];
-          }
-        }
-        for (; j < mb; ++j) {
-          const unsigned c = tile[(size_t)j * seg + r];
-          acc = acc + lut[(2 * j) * 16 + (c & 15u)];
-          acc = acc + lut[(2 * j + 1) * 16 + (c >> 4)];
-        }
-      } else {
-        int j = 0;
-        for (; j + 8 <= mb; j += 8) {
-          unsigned c[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) c[u] = tile[(size_t)(j + u) * seg + r];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) acc = acc + lut[(j + u) * ksub + c[u]];
-        }
-        for (; j < mb; ++j) acc = acc + lut[j * ksub + tile[(size_t)j * seg + r]];
-      }
+      const float acc = packed ? adc_sum_transposed<true>(tile, lut, r, mb, seg, ksub)
+                               : adc_sum_transposed<false>(tile, lut, r, mb, seg, ksub);
       sc[r] = r < vc ? acc : -INFINITY;
     }
     __syncthreads();

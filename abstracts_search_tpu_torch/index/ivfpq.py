@@ -9,8 +9,11 @@ shared LUT [M, ksub] per query. One search batch:
      bias for the chosen lists and the residual LUTs;
   2. slots: exactly sum(seg_cnt[probed lists]) (query, segment) pairs,
      query-major, derived on the device from the resident CSR;
-  3. scan: fused ADC + per-slot top-kp (the ``adc_topk`` kernel); the
-     bias is constant within a slot, so it is added to the kp winners;
+  3. scan: over transposed lists (what every fill writes), fused ADC +
+     per-slot top-kp (the ``adc_topk`` kernel); the bias is constant
+     within a slot, so it is added to the kp winners. Over row-major
+     lists (legacy format<=2 artifacts), raw ADC sums (the ``adc_scan``
+     kernel), then bias, row mask and a per-slot top-kp;
   4. merge: a ragged per-query top-k over the slot winners, in slot
      order, the lowest candidate winning ties;
   5. positions: flat rows resolve to corpus positions on the host
@@ -18,9 +21,7 @@ shared LUT [M, ksub] per query. One search batch:
 
 Artifacts are the JAX package's (``meta.json``, ``centroids.npy``,
 ``pq_centroids.npy``, ``rotation.npy``, ``lists/``); ``load`` opens
-them and ``save`` writes them. Only transposed list payloads (what every
-fill writes) are served; row-major legacy payloads need ADC kernels 5-6,
-which are still to be ported.
+them and ``save`` writes them.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch
 
 from ..device import assert_exact_f32, resolve_device
 from ..ops import _build
-from ..ops.adc import adc_topk
+from ..ops.adc import adc_scan, adc_topk
 from ..ops.topk import streaming_topk
 from .lists import CSRLists, load_lists, save_lists
 
@@ -174,16 +175,15 @@ class IVFPQIndex:
                 f"index meta seg_size={self.seg_size} != packed lists "
                 f"seg_size={packed.seg_size}; the artifact directory is "
                 f"inconsistent")
-        if not packed.transposed:
-            raise NotImplementedError(
-                "row-major list payloads: their ADC kernels are not yet ported")
-        if packed.data.dtype != np.uint8 or packed.data.shape[1] != self.code_bytes:
-            raise ValueError(f"payload {packed.data.shape} {packed.data.dtype} does "
+        shape = packed.data.shape
+        mb = shape[1] if packed.transposed else shape[-1]
+        if packed.data.dtype != np.uint8 or len(shape) != 3 or mb != self.code_bytes:
+            raise ValueError(f"payload {shape} {packed.data.dtype} does "
                              f"not hold {self.code_bytes}-byte codes")
         dev = self.device
         self.packed = packed
         self.n = packed.n_rows
-        self._codes = _upload(packed.data, dev)                 # [n_segs, MB, SEG]
+        self._codes = _upload(packed.data, dev)        # [n_segs, MB, SEG] | [n_segs, SEG, MB]
         self._seg_valid = torch.from_numpy(
             np.asarray(packed.seg_valid, np.int32)).to(dev)
         self._seg_start = torch.from_numpy(
@@ -212,12 +212,18 @@ class IVFPQIndex:
                            generator=torch.Generator(device=self.device).manual_seed(0))
         seg_ids = torch.arange(n_slots, dtype=torch.int32, device=self.device)
         q_ids = seg_ids % 2
-        valid = self._seg_valid[:n_slots].contiguous()
-        kp = min(10, self.seg_size)
-        kv, ki = adc_topk(self._codes, luts, seg_ids, q_ids, valid, kp, impl="cuda")
-        pv, pi = adc_topk(self._codes, luts, seg_ids, q_ids, valid, kp, impl="torch")
-        if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
-            raise RuntimeError("adc_topk kernel disagrees with its plain version")
+        transposed = self.packed.transposed
+        ks = [adc_scan(self._codes, luts, seg_ids, q_ids, transposed=transposed, impl=impl)
+              for impl in ("cuda", "torch")]
+        if not torch.equal(*ks):
+            raise RuntimeError("adc_scan kernel disagrees with its plain version")
+        if transposed:
+            valid = self._seg_valid[:n_slots].contiguous()
+            kp = min(10, self.seg_size)
+            kv, ki = adc_topk(self._codes, luts, seg_ids, q_ids, valid, kp, impl="cuda")
+            pv, pi = adc_topk(self._codes, luts, seg_ids, q_ids, valid, kp, impl="torch")
+            if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+                raise RuntimeError("adc_topk kernel disagrees with its plain version")
 
     # -- search ----------------------------------------------------------------
 
@@ -270,9 +276,20 @@ class IVFPQIndex:
         if len(seg_ids) == 0:
             return (torch.full((qn, k), NEG_INF, device=dev),
                     torch.full((qn, k), -1, dtype=torch.int64, device=dev))
-        sv, si = adc_topk(self._codes, luts, seg_ids, q_ids, valid, min(k, seg),
-                          impl=self.scan_impl)
-        sv = sv + bias.reshape(-1)[pair][:, None]                # [S, kp]
+        kp = min(k, seg)
+        slot_bias = bias.reshape(-1)[pair][:, None]
+        if self.packed.transposed:
+            sv, si = adc_topk(self._codes, luts, seg_ids, q_ids, valid, kp,
+                              impl=self.scan_impl)
+            sv = sv + slot_bias                                  # [S, kp]
+        else:
+            scores = adc_scan(self._codes, luts, seg_ids, q_ids, transposed=False,
+                              impl=self.scan_impl) + slot_bias   # [S, SEG]
+            rows = torch.arange(seg, device=dev)
+            scores = torch.where(rows[None, :] < valid[:, None], scores, NEG_INF)
+            # per-slot top-kp under (value desc, row asc)
+            sv, si = torch.sort(scores, dim=1, descending=True, stable=True)
+            sv, si = sv[:, :kp], si[:, :kp]
         srows = seg_ids.long()[:, None] * seg + si.long()
 
         # ragged per-query merge over the query's slots in slot order

@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-- ``topk`` — streaming exact top-k of q . x^T (the IVF probe).
-- ``adc``  — fused IVF-PQ ADC scan + per-slot top-kp.
+- ``topk`` — streaming top-k of q . x^T, exact and fast mode (the IVF
+  probe, flat search).
+- ``adc``  — IVF-PQ ADC scans: fused scan + per-slot top-kp over
+  transposed lists, and raw scans over either layout.
 
 Each op has an ``impl`` switch: ``"cuda"`` (the kernel in ``csrc/``,
 built by ``_build`` with nvcc at first use), ``"torch"`` (the plain
@@ -10,7 +12,7 @@ tensors, the plain version for CPU tensors). Nothing falls back from
 the kernel to the plain version.
 """
 
-from .adc import adc_topk
+from .adc import adc_scan, adc_topk
 from .topk import streaming_topk
 
-__all__ = ["adc_topk", "streaming_topk"]
+__all__ = ["adc_scan", "adc_topk", "streaming_topk"]

@@ -1,21 +1,34 @@
-"""Fused IVF-PQ ADC scan + per-slot top-kp — the IVF-PQ query hot loop.
+"""IVF-PQ ADC scans — the IVF-PQ query hot loop.
 
 A *slot* is a pair (query ``q_ids[i]``, segment ``seg_ids[i]``) over the
-transposed payload ``codes3 [n_segs, MB, SEG]`` uint8. Each row scores
-``sum_m luts[q, m, code_m]``; rows at or past ``valid_cnt[i]`` are -inf;
-the slot keeps its top-kp rows (value desc, row asc; (-inf, 0) where
-fewer than kp rows are valid). The per-slot bias q . c_list is constant
-within a slot, so the caller adds it to the kp winners.
+list payload ``codes3``. Each row of the segment scores
+``sum_m luts[q, m, code_m]``, added in the fixed order m = 0..M-1.
+
+Two ops:
+
+- ``adc_topk``: fused scan + per-slot top-kp over the transposed payload
+  ``[n_segs, MB, SEG]`` (what every fill writes). Rows at or past
+  ``valid_cnt[i]`` are -inf; the slot keeps its top-kp rows (value desc,
+  row asc; (-inf, 0) where fewer than kp rows are valid). The per-slot
+  bias q . c_list is constant within a slot, so the caller adds it to the
+  kp winners.
+- ``adc_scan``: the raw sums ``[n_slots, SEG]``, no mask, no selection,
+  over either layout: transposed ``[n_segs, MB, SEG]`` or row-major
+  ``[n_segs, SEG, MB]`` (legacy format<=2 artifacts). The caller adds
+  the bias, masks and selects.
 
 Payloads are nibble-packed (ksub 16, MB = M/2: byte j holds subspace 2j
 in its low nibble and 2j+1 in its high nibble) or unpacked (ksub up to
 256, MB = M), told apart by shape (``_is_packed``).
 
-- ``"cuda"``: the hand-written kernel in ``csrc/adc_topk.cu``;
-- ``"torch"``: ``adc_topk_torch``, the plain version (gather + sum, mask,
-  stable sort), the twin of the JAX package's ``adc_topk_xla``. It adds
-  the M lookups in the same order as the kernel, so the two agree bit
-  for bit.
+Each op has an ``impl`` switch:
+
+- ``"cuda"``: the hand-written kernels, ``csrc/adc_topk.cu`` and
+  ``csrc/adc_scan.cu`` (one template per layout and packing);
+- ``"torch"``: the plain versions ``adc_topk_torch`` (twin of the JAX
+  package's ``adc_topk_xla``) and ``adc_scan_torch`` (twin of
+  ``adc_scan_xla``). They add the M lookups in the kernels' order, so
+  kernel and plain version agree bit for bit.
 
 ``"auto"`` takes the kernel for a CUDA tensor and the plain version for
 a CPU tensor. The LUTs are passed as [Q, M, ksub], with no re-layout.
@@ -31,60 +44,93 @@ from . import _build
 
 NEG_INF = float("-inf")
 
-# kernel launches through adc_topk
+# kernel launches through adc_topk, and through adc_scan by kernel (named
+# after the TPU kernel each replaces)
 launches = 0
+scan_launches = {"adc_kernel_t": 0, "adc_kernel_packed4": 0, "adc_kernel": 0}
 
 _SMEM_LIMIT = 232_448
 _BLOCKS_PER_SM = 16
 _SLOT_CHUNK = 8192
 
 
-def _is_packed(codes3, luts) -> bool:
-    return luts.shape[2] == 16 and codes3.shape[1] * 2 == luts.shape[1]
+def _is_packed(codes3, luts, transposed: bool) -> bool:
+    """Nibble-packed payloads (ksub 16, MB = M/2), told from unpacked
+    4-bit payloads by shape; MB is axis 1 transposed, axis 2 row-major."""
+    mb_axis = 1 if transposed else 2
+    return luts.shape[2] == 16 and codes3.shape[mb_axis] * 2 == luts.shape[1]
 
 
-def _check_shapes(codes3, luts, seg_ids, q_ids, valid_cnt, kp):
+def _check_payload(codes3, luts, transposed: bool) -> bool:
     if codes3.dim() != 3 or codes3.dtype != torch.uint8:
-        raise ValueError(f"codes3 must be [n_segs, MB, SEG] uint8, got "
-                         f"{tuple(codes3.shape)} {codes3.dtype}")
+        raise ValueError(f"codes3 must be [n_segs, MB, SEG] or [n_segs, SEG, MB] "
+                         f"uint8, got {tuple(codes3.shape)} {codes3.dtype}")
     if luts.dim() != 3 or luts.dtype != torch.float32:
         raise ValueError(f"luts must be [Q, M, ksub] float32, got "
                          f"{tuple(luts.shape)} {luts.dtype}")
-    _, mb, seg = codes3.shape
+    mb = codes3.shape[1 if transposed else 2]
     _, m, ksub = luts.shape
-    packed = _is_packed(codes3, luts)
+    packed = _is_packed(codes3, luts, transposed)
     if mb != (m // 2 if packed else m) or ksub > 256:
         raise ValueError(f"payload bytes {mb} do not fit M={m}, ksub={ksub}")
+    return packed
+
+
+def _check_shapes(codes3, luts, seg_ids, q_ids, valid_cnt, kp):
+    packed = _check_payload(codes3, luts, transposed=True)
     n = seg_ids.shape[0]
     if q_ids.shape != (n,) or valid_cnt.shape != (n,):
         raise ValueError("seg_ids, q_ids and valid_cnt must be [n_slots]")
-    if not 0 < kp <= seg:
-        raise ValueError(f"kp={kp} must be in [1, SEG={seg}]")
+    if not 0 < kp <= codes3.shape[2]:
+        raise ValueError(f"kp={kp} must be in [1, SEG={codes3.shape[2]}]")
     return packed
+
+
+def _check_cuda(codes3, luts, **slot_arrays):
+    """The kernels take every input contiguous on one CUDA device, with
+    int32 slot arrays."""
+    tensors = (codes3, luts, *slot_arrays.values())
+    if not all(t.is_cuda and t.device == codes3.device for t in tensors):
+        raise ValueError("the CUDA ADC scan needs every input on one CUDA device")
+    for name, t in slot_arrays.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the CUDA ADC scan needs contiguous inputs")
+
+
+def _sums(codes3, luts, seg_ids, q_ids, packed: bool, transposed: bool):
+    """Raw ADC sums [S, SEG] for a few slots, adding the M lookups in
+    order m = 0..M-1 as the kernels do."""
+    _, m, ksub = luts.shape
+    tiles = codes3[seg_ids.long()]                         # [S, MB, SEG] | [S, SEG, MB]
+    if not transposed:
+        tiles = tiles.transpose(1, 2)                      # -> [S, MB, SEG]
+    flat = luts.reshape(-1)
+    base = q_ids.long()[:, None] * (m * ksub)              # [S, 1]
+    acc = torch.zeros((tiles.shape[0], tiles.shape[2]), dtype=torch.float32,
+                      device=codes3.device)
+    for mm in range(m):
+        if packed:
+            byte = tiles[:, mm // 2, :]
+            code = (byte & 15) if mm % 2 == 0 else (byte >> 4)
+        else:
+            code = tiles[:, mm, :]
+        acc = acc + flat[base + mm * ksub + code.long()]
+    return acc
 
 
 def adc_topk_torch(codes3, luts, seg_ids, q_ids, valid_cnt, kp: int):
     packed = _check_shapes(codes3, luts, seg_ids, q_ids, valid_cnt, kp)
-    _, mb, seg = codes3.shape
-    _, m, ksub = luts.shape
+    seg = codes3.shape[2]
     dev = codes3.device
     n_slots = seg_ids.shape[0]
-    flat = luts.reshape(-1)
     rows = torch.arange(seg, device=dev)
     out_v = torch.empty((n_slots, kp), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_slots, kp), dtype=torch.int32, device=dev)
     for s0 in range(0, n_slots, _SLOT_CHUNK):     # bounds the [S, SEG] temporaries
         s1 = min(s0 + _SLOT_CHUNK, n_slots)
-        tiles = codes3[seg_ids[s0:s1].long()]                  # [S, MB, SEG]
-        base = q_ids[s0:s1].long()[:, None] * (m * ksub)       # [S, 1]
-        acc = torch.zeros((s1 - s0, seg), dtype=torch.float32, device=dev)
-        for mm in range(m):                    # sequential, as the kernel adds
-            if packed:
-                byte = tiles[:, mm // 2, :]
-                code = (byte & 15) if mm % 2 == 0 else (byte >> 4)
-            else:
-                code = tiles[:, mm, :]
-            acc = acc + flat[base + mm * ksub + code.long()]
+        acc = _sums(codes3, luts, seg_ids[s0:s1], q_ids[s0:s1], packed, True)
         acc = torch.where(rows[None, :] < valid_cnt[s0:s1, None].to(dev), acc,
                           NEG_INF)
         v, order = torch.sort(acc, dim=1, descending=True, stable=True)
@@ -108,14 +154,7 @@ def _lib():
 def adc_topk_cuda(codes3, luts, seg_ids, q_ids, valid_cnt, kp: int):
     global launches
     packed = _check_shapes(codes3, luts, seg_ids, q_ids, valid_cnt, kp)
-    tensors = (codes3, luts, seg_ids, q_ids, valid_cnt)
-    if not all(t.is_cuda and t.device == codes3.device for t in tensors):
-        raise ValueError("the CUDA ADC scan needs every input on one CUDA device")
-    for name, t in (("seg_ids", seg_ids), ("q_ids", q_ids), ("valid_cnt", valid_cnt)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the CUDA ADC scan needs contiguous inputs")
+    _check_cuda(codes3, luts, seg_ids=seg_ids, q_ids=q_ids, valid_cnt=valid_cnt)
     _, mb, seg = codes3.shape
     _, m, ksub = luts.shape
     if 4 * (m * ksub + seg) > _SMEM_LIMIT:
@@ -150,4 +189,79 @@ def adc_topk(codes3, luts, seg_ids, q_ids, valid_cnt, kp: int, *,
         return adc_topk_cuda(codes3, luts, seg_ids, q_ids, valid_cnt, kp)
     if impl == "torch":
         return adc_topk_torch(codes3, luts, seg_ids, q_ids, valid_cnt, kp)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+# -- raw scans (kernels 4-6 of the JAX package) ---------------------------------------
+
+
+def _check_scan(codes3, luts, seg_ids, q_ids, transposed: bool) -> bool:
+    packed = _check_payload(codes3, luts, transposed)
+    if seg_ids.dim() != 1 or q_ids.shape != seg_ids.shape:
+        raise ValueError("seg_ids and q_ids must be [n_slots]")
+    return packed
+
+
+def adc_scan_torch(codes3, luts, seg_ids, q_ids, *, transposed: bool):
+    packed = _check_scan(codes3, luts, seg_ids, q_ids, transposed)
+    seg = codes3.shape[2 if transposed else 1]
+    n_slots = seg_ids.shape[0]
+    out = torch.empty((n_slots, seg), dtype=torch.float32, device=codes3.device)
+    for s0 in range(0, n_slots, _SLOT_CHUNK):
+        s1 = min(s0 + _SLOT_CHUNK, n_slots)
+        out[s0:s1] = _sums(codes3, luts, seg_ids[s0:s1], q_ids[s0:s1], packed, transposed)
+    return out
+
+
+def _scan_lib():
+    lib = _build.library("adc_scan")
+    if not getattr(lib, "_typed", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.adc_scan_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp, vp]
+        lib.adc_scan_launch.restype = i
+        lib._typed = True
+    return lib
+
+
+def adc_scan_cuda(codes3, luts, seg_ids, q_ids, *, transposed: bool):
+    packed = _check_scan(codes3, luts, seg_ids, q_ids, transposed)
+    _check_cuda(codes3, luts, seg_ids=seg_ids, q_ids=q_ids)
+    mb, seg = (codes3.shape[1], codes3.shape[2]) if transposed else \
+        (codes3.shape[2], codes3.shape[1])
+    _, m, ksub = luts.shape
+    smem = 4 * m * ksub
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"a [{m}, {ksub}] LUT does not fit shared memory")
+    n_slots = seg_ids.shape[0]
+    out = torch.empty((n_slots, seg), dtype=torch.float32, device=codes3.device)
+    if n_slots == 0:
+        return out
+    sms = torch.cuda.get_device_properties(codes3.device).multi_processor_count
+    # the LUT is restaged per query a block meets: fewer, longer blocks
+    # where a large LUT limits the blocks an SM holds anyway
+    per_sm = max(1, min(_BLOCKS_PER_SM, _SMEM_LIMIT // max(smem, 1)))
+    spb = max(1, n_slots // (sms * per_sm))
+    err = _scan_lib().adc_scan_launch(
+        codes3.data_ptr(), luts.data_ptr(), seg_ids.data_ptr(), q_ids.data_ptr(),
+        n_slots, mb, seg, m, ksub, int(packed), int(transposed), spb, out.data_ptr(),
+        torch.cuda.current_stream(codes3.device).cuda_stream)
+    _build.check(err, "adc_scan")
+    name = ("adc_kernel_t" if transposed else
+            "adc_kernel_packed4" if packed else "adc_kernel")
+    scan_launches[name] += 1
+    return out
+
+
+def adc_scan(codes3, luts, seg_ids, q_ids, *, transposed: bool, impl: str = "auto"):
+    """Raw per-slot ADC sums [n_slots, SEG] f32 over transposed
+    ([n_segs, MB, SEG]) or row-major ([n_segs, SEG, MB]) payloads.
+    impl: "cuda" | "torch" | "auto"."""
+    if impl == "auto":
+        impl = "cuda" if codes3.is_cuda else "torch"
+    if impl == "cuda":
+        if not codes3.is_cuda:
+            raise ValueError("impl='cuda' needs CUDA tensors")
+        return adc_scan_cuda(codes3, luts, seg_ids, q_ids, transposed=transposed)
+    if impl == "torch":
+        return adc_scan_torch(codes3, luts, seg_ids, q_ids, transposed=transposed)
     raise ValueError(f"unknown impl {impl!r}")

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's query path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's search paths once on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--n-rows 206962688]
+    python3 chip_smoke.py [--seed 0] [--n-rows 206962688] [--phases ...]
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
   device  the card (nvidia-smi name and power limit), torch/CUDA
           versions, TF32 asserted off. Exits non-zero without CUDA.
-  build   both kernels from abstracts_search_tpu_torch/csrc with nvcc
+  build   every kernel from abstracts_search_tpu_torch/csrc with nvcc
           (sm_90a), all sources compiled in parallel.
   kernels each kernel against its plain PyTorch version on the card at
-          the probe's and the scan's shapes (index mismatches beyond
-          ties within f32 accumulation error fail), with CUDA-event times.
+          the paths' shapes: exact top-k (index mismatches beyond ties
+          within f32 accumulation error fail), fast top-k (beyond one
+          truncation step), ADC scans (bit for bit), with CUDA-event times.
+  flat    bench.py's configuration: 2,097,152 x 1024 bf16 unit vectors,
+          128 queries, k 10, chunk 4096. The fast-mode top-k kernel
+          against its plain version, QPS by CUDA events over chained
+          calls, the library yardstick torch.topk(q @ x.T, k), and
+          FlatIndex (exact kernel) against its plain route.
   index   seeded IVF-PQ artifacts at the production geometry (D 1024,
           65,536 lists, OPQ rotation, PQ128x4 nibble-packed transposed,
           SEG 256, 206,962,688 rows, lognormal-skewed list sizes), written
@@ -20,16 +26,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
           the plain path on the same index (hash-embedded texts and
           reconstructions of corpus rows), batch-256 QPS, single-query
           p50, and an HTTP round trip through run_server.
+  legacy  after the transposed index is freed and deleted: the same
+          geometry written row-major (legacy format<=2 layout, raw scan
+          kernel for packed rows) and served with the same checks, then a
+          row-major PQ64x8 artifact (4,096 lists, 2,097,152 rows, raw scan
+          kernel for byte codes) held against its plain path.
 
-Then a ``{"kernels": [...]}`` line for the kernels as the serve phase
-drove them (launch counts from the main path; times and bounds at its
-batch-256 inputs), the card's nvidia-smi line, and last
+Each path (serve, flat, legacy) runs with every launch count set to 0
+just before it and read just after, and fails if one of its kernels
+never launched. Then a ``{"kernels": [...]}`` line with one row per TPU
+kernel (launches from the paths; times and bounds at the inputs the
+paths gave each kernel), the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import shutil
 import statistics
@@ -48,10 +62,28 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 
 N_LISTS, DIM, PQ_M, PQ_NBITS, SEG = 65_536, 1024, 128, 4, 256
-TOPK_SRC = "abstracts_search_tpu_torch/csrc/topk.cu"
-ADC_SRC = "abstracts_search_tpu_torch/csrc/adc_topk.cu"
-TOPK_TPU = "abstracts_search_tpu/ops/topk.py:184"
-ADC_TPU = "abstracts_search_tpu/ops/adc.py:333"
+# the small row-major byte-code artifact (kernel 6)
+PQ8 = {"n_lists": 4096, "pq_m": 64, "pq_nbits": 8, "n_rows": 2_097_152}
+# bench.py's configuration (BASELINE.md config 1)
+FLAT_N, FLAT_Q, FLAT_K, FLAT_CHUNK = 2_097_152, 128, 10, 4096
+FLAT_METRIC = (f"flat IP search QPS (fast selection; {FLAT_N}x{DIM} corpus, "
+               f"batch {FLAT_Q}, k={FLAT_K})")
+
+CSRC = "abstracts_search_tpu_torch/csrc/"
+# one row per TPU kernel: key -> (name, source, the TPU kernel it replaces)
+KERNELS = {
+    "topk": ("streaming_topk (exact)", CSRC + "topk.cu",
+             "abstracts_search_tpu/ops/topk.py:184"),
+    "topk_fast": ("streaming_topk (fast)", CSRC + "topk.cu",
+                  "abstracts_search_tpu/ops/topk.py:235"),
+    "adc_topk": ("adc_topk", CSRC + "adc_topk.cu", "abstracts_search_tpu/ops/adc.py:333"),
+    "adc_kernel_t": ("adc_scan (transposed)", CSRC + "adc_scan.cu",
+                     "abstracts_search_tpu/ops/adc.py:52"),
+    "adc_kernel_packed4": ("adc_scan (row-major, packed)", CSRC + "adc_scan.cu",
+                           "abstracts_search_tpu/ops/adc.py:92"),
+    "adc_kernel": ("adc_scan (row-major, bytes)", CSRC + "adc_scan.cu",
+                   "abstracts_search_tpu/ops/adc.py:119"),
+}
 
 
 def emit(obj) -> None:
@@ -81,6 +113,37 @@ def bound(bytes_moved: float, ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# -- launch counts -------------------------------------------------------------
+
+
+def counts() -> dict:
+    from abstracts_search_tpu_torch.ops import adc, topk
+
+    return {"topk": topk.launches, "topk_fast": topk.fast_launches,
+            "adc_topk": adc.launches, **adc.scan_launches}
+
+
+def reset_counts() -> None:
+    from abstracts_search_tpu_torch.ops import adc, topk
+
+    topk.launches = topk.fast_launches = adc.launches = 0
+    for key in adc.scan_launches:
+        adc.scan_launches[key] = 0
+
+
+def drive(path: str, fn, must_launch, by_path: dict):
+    """Run one path with the counts at 0 just before it; record the
+    counts just after and fail if a kernel of the path never launched."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    by_path[path] = {k: v for k, v in counts().items() if v}
+    missing = [k for k in must_launch if not by_path[path].get(k)]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
+    return out
+
+
 # -- comparisons ---------------------------------------------------------------
 
 
@@ -103,15 +166,64 @@ def compare_topk(q, x, k, got, ref, tol):
     return err, len(bad) - ties, ties
 
 
+def trunc_step(v, lane_bits: int):
+    """One fast-mode truncation step at |v|: 2**lane_bits f32 ulps."""
+    e = torch.frexp(v.abs().double().clamp_min(2.0**-126)).exponent
+    return torch.pow(2.0, (e - 24 + lane_bits).double())
+
+
+def compare_fast(q, x, n_valid, got, ref, lane_bits):
+    """Fast kernel vs its plain version: the sentinel tail (-inf) equal;
+    finite values equal or one truncation step apart; index lists equal
+    except near-ties whose exact (f64) scores differ by at most one step.
+    -> dict of max_abs_err, values_one_step_apart, index_mismatches,
+    near_ties."""
+
+    gv, gi = got
+    pv, pi = ref
+    fin = torch.isfinite(pv)
+    if not torch.equal(fin, torch.isfinite(gv)) or not torch.equal(gi[~fin], pi[~fin]):
+        raise AssertionError("fast top-k: the sentinel tails differ")
+    step = trunc_step(torch.maximum(gv.abs(), pv.abs()), lane_bits)
+    diff = (gv.double() - pv.double()).abs()
+    if bool((diff[fin] > step[fin]).any()):
+        raise AssertionError(f"fast top-k: values more than one step apart: "
+                             f"{float(diff[fin].max())}")
+    bad = ((gi != pi) & fin).any(dim=1).nonzero().flatten().tolist()
+    ties = 0
+    for r in bad:
+        f = fin[r]
+        qd = q[r].double()
+        a = (x[gi[r][f].long()].double() @ qd).sort(descending=True).values
+        b = (x[pi[r][f].long()].double() @ qd).sort(descending=True).values
+        ties += int(((a - b).abs() <= trunc_step(torch.maximum(a.abs(), b.abs()),
+                                                 lane_bits)).all())
+    return {"max_abs_err": float(diff[fin].max()) if fin.any() else 0.0,
+            "values_one_step_apart": int((diff[fin] > 0).sum()),
+            "index_mismatches": len(bad) - ties, "near_ties": ties}
+
+
+def unit_rows(n: int, g, dtype=torch.bfloat16, block: int = 1 << 18):
+    """n seeded unit vectors [n, DIM] made on the card block by block, so
+    no f32 copy of the whole corpus exists."""
+    x = torch.empty((n, DIM), dtype=dtype, device="cuda")
+    for lo in range(0, n, block):
+        hi = min(lo + block, n)
+        x[lo:hi] = torch.nn.functional.normalize(
+            torch.randn((hi - lo, DIM), device="cuda", generator=g), dim=1).to(dtype)
+    return x
+
+
 def check_kernels(seed: int):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the paths' shapes.
+    -> (results, the kernel-4 row: no search path reaches that kernel,
+    so its launches are this phase's)."""
 
     from abstracts_search_tpu_torch.ops import adc, topk
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    out = {"topk": [], "adc_topk": []}
-    x = torch.randn((N_LISTS, DIM), device="cuda", generator=g)
-    x = torch.nn.functional.normalize(x, dim=1).to(torch.bfloat16)
+    out = {"topk": [], "topk_fast": [], "adc_topk": [], "adc_scan": []}
+    x = unit_rows(N_LISTS, g)
     for qn in (1, 256):
         q = torch.nn.functional.normalize(
             torch.randn((qn, DIM), device="cuda", generator=g), dim=1).to(torch.bfloat16)
@@ -142,7 +254,37 @@ def check_kernels(seed: int):
     if bad or err > 1e-3:
         raise AssertionError(f"topk f32 kernel disagrees: {out['topk'][-1]}")
 
+    # fast mode at bench.py's chunk over the probe-sized corpus; a case
+    # with fewer valid rows than k (sentinel tail) and one where every
+    # score is negative (truncation toward -inf grows the magnitude)
+    chunk = FLAT_CHUNK
+    lane_bits = chunk.bit_length() - 1
+    x_pos = x.abs()
+    for qn, k, n_valid, neg in ((1, 1, N_LISTS, False), (1, 10, N_LISTS, False),
+                                (128, 10, N_LISTS, False), (128, 24, N_LISTS, False),
+                                (128, 10, 5, False), (1, 24, 20_000, True),
+                                (128, 10, N_LISTS, True)):
+        q = torch.randn((qn, DIM), device="cuda", generator=g).to(torch.bfloat16)
+        xs = x_pos if neg else x
+        if neg:
+            q = -q.abs()
+        run = lambda impl: topk.streaming_topk(q, xs, n_valid, k, chunk=chunk,  # noqa: E731
+                                               impl=impl, mode="fast")
+        got, ref = run("cuda"), run("torch")
+        torch.cuda.synchronize()
+        case = {"q": qn, "n": N_LISTS, "n_valid": n_valid, "d": DIM, "dtype": "bf16",
+                "k": k, "chunk": chunk, "negative_scores": neg,
+                **compare_fast(q, xs, n_valid, got, ref, lane_bits),
+                "ms": cuda_ms(lambda: run("cuda")),
+                "plain_ms": cuda_ms(lambda: run("torch"), reps=3, warmup=1)}
+        out["topk_fast"].append(case)
+        if case["index_mismatches"]:
+            raise AssertionError(f"fast topk kernel disagrees: {case}")
+    del x, x_pos
+
     n_segs, n_slots, qn = 24_576, 8_192, 256
+    reset_counts()
+    k4 = None
     for mb, m, ksub in ((64, 128, 16), (64, 64, 256)):
         codes = torch.randint(0, 256, (n_segs, mb, SEG), dtype=torch.uint8,
                               device="cuda", generator=g)
@@ -170,20 +312,131 @@ def check_kernels(seed: int):
             out["adc_topk"].append(case)
             if case["index_mismatches"] or case["inf_mismatches"] or case["max_abs_err"]:
                 raise AssertionError(f"adc_topk kernel disagrees: {case}")
+        # raw scans over both layouts of the same codes (kernels 4, 5, 6)
+        for transposed in (True, False):
+            c3 = codes if transposed else codes.transpose(1, 2).contiguous()
+            sargs = (c3, luts, seg_ids, q_ids)
+            run = lambda impl: adc.adc_scan(*sargs, transposed=transposed,  # noqa: E731
+                                            impl=impl)
+            got, ref = run("cuda"), run("torch")
+            torch.cuda.synchronize()
+            case = {"slots": n_slots, "mb": mb, "m": m, "ksub": ksub, "seg": SEG,
+                    "transposed": transposed, "bit_equal": bool(torch.equal(got, ref)),
+                    "ms": cuda_ms(lambda: run("cuda")),
+                    "plain_ms": cuda_ms(lambda: run("torch"), reps=3, warmup=1)}
+            out["adc_scan"].append(case)
+            if not case["bit_equal"]:
+                raise AssertionError(f"adc_scan kernel disagrees: {case}")
+            if transposed and ksub == 16:
+                b, by = bound(n_slots * (mb * SEG + 4 * SEG + 8) + luts.numel() * 4,
+                              n_slots * SEG * m, "f32")
+                k4 = {"shape": [n_slots, mb, SEG, m, ksub], "max_abs_err": 0.0,
+                      "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": b,
+                      "bound_by": by, "library_ms": None,
+                      "launches_from": "kernels phase: no search path of the JAX "
+                                       "package reaches this kernel"}
+            del c3
         del codes
-    return out
+    torch.cuda.synchronize()
+    k4["launches"] = counts()["adc_kernel_t"]
+    return out, k4
 
 
-# -- index artifacts at the production geometry -----------------------------------
+# -- flat search (bench.py's configuration) ------------------------------------------
 
 
-def list_sizes(n_rows: int, seed: int):
+def flat_phase(seed: int, by_path: dict):
+    """-> (phase result, kernel rows for the fast kernel and the exact
+    kernel at this shape)."""
+
+    from abstracts_search_tpu_torch.index import FlatIndex
+    from abstracts_search_tpu_torch.ops import topk
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    x = unit_rows(FLAT_N, g)
+    # bench.py's queries: standard normal rows, cast to the corpus type
+    qs = [torch.randn((FLAT_Q, DIM), device="cuda", generator=g).to(torch.bfloat16)
+          for _ in range(4)]
+    lane_bits = FLAT_CHUNK.bit_length() - 1
+    fast = lambda q, impl="cuda": topk.streaming_topk(  # noqa: E731
+        q, x, FLAT_N, FLAT_K, chunk=FLAT_CHUNK, impl=impl, mode="fast")
+    flat = FlatIndex()
+    flat.add(x)
+    q_np = qs[0].float().cpu().numpy()
+
+    def path():
+        fast(qs[0])
+        torch.cuda.synchronize()
+        reps = 16
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for r in range(reps):        # chained calls, one sync, as bench.py times them
+            fast(qs[r % 4])
+        e.record()
+        e.synchronize()
+        per_batch_ms = s.elapsed_time(e) / reps
+        return per_batch_ms, flat.search(q_np, FLAT_K)
+
+    per_batch_ms, (fv, fp) = drive("flat", path, ("topk_fast", "topk"), by_path)
+
+    got, ref = fast(qs[0]), fast(qs[0], "torch")
+    torch.cuda.synchronize()
+    fast_cmp = compare_fast(qs[0], x, FLAT_N, got, ref, lane_bits)
+    if fast_cmp["index_mismatches"]:
+        raise AssertionError(f"fast kernel disagrees at bench.py's shape: {fast_cmp}")
+    flat.impl = "torch"
+    pv, pp = flat.search(q_np, FLAT_K)
+    flat.impl = "auto"
+    err, bad, ties = compare_topk(qs[0], x, FLAT_K,
+                                  (torch.from_numpy(fv).cuda(), torch.from_numpy(fp).cuda()),
+                                  (torch.from_numpy(pv).cuda(), torch.from_numpy(pp).cuda()),
+                                  1e-4)
+    if bad or err > 1e-4 or not np.isfinite(fv).all() or fv.shape != (FLAT_Q, FLAT_K):
+        raise AssertionError(f"FlatIndex kernel route disagrees: err {err}, {bad} rows")
+    # fast values are exact scores truncated toward -inf by at most a step
+    ex = torch.from_numpy(fv).cuda().double()
+    gap = ex - got[0].double()
+    if bool((gap < -1e-4).any() or (gap > trunc_step(ex, lane_bits) + 1e-4).any()):
+        raise AssertionError("fast values are not the exact ones truncated")
+
+    library_ms = cuda_ms(lambda: torch.topk(qs[0] @ x.T, FLAT_K))
+    b, by = bound(x.numel() * 2 + qs[0].numel() * 2 + FLAT_Q * FLAT_K * 8,
+                  2 * FLAT_Q * FLAT_N * DIM, "bf16")
+    shape = [FLAT_Q, FLAT_N, DIM, FLAT_K]
+    q0 = qs[0]
+    exact = lambda impl: topk.streaming_topk(q0, x, FLAT_N, FLAT_K,  # noqa: E731
+                                             chunk=FLAT_CHUNK, impl=impl)
+    rows = {
+        "topk_fast": {"shape": shape + [FLAT_CHUNK], **fast_cmp,
+                      "ms": cuda_ms(lambda: fast(q0), reps=10),
+                      "plain_ms": cuda_ms(lambda: fast(q0, "torch"), reps=3, warmup=1),
+                      "bound_ms": b, "bound_by": by, "library_ms": library_ms},
+        "topk_flat": {"shape": shape, "max_abs_err": err, "index_mismatches": bad,
+                      "near_ties": ties, "ms": cuda_ms(lambda: exact("cuda"), reps=10),
+                      "plain_ms": cuda_ms(lambda: exact("torch"), reps=3, warmup=1),
+                      "bound_ms": b, "bound_by": by, "library_ms": library_ms},
+    }
+    res = {"metric": FLAT_METRIC, "value": FLAT_Q / (per_batch_ms / 1e3),
+           "unit": "queries/sec/chip", "mode": "fast", "batch_ms": per_batch_ms,
+           "flat_index_exact": {"max_abs_err": err, "index_mismatches": bad,
+                                "near_ties": ties},
+           "fast_vs_plain": fast_cmp, "library_ms": library_ms,
+           "launches": by_path["flat"]}
+    del x, flat, qs, got, ref
+    release()
+    return res, rows
+
+
+# -- index artifacts ----------------------------------------------------------------
+
+
+def list_sizes(n_rows: int, seed: int, n_lists: int = N_LISTS):
     """Lognormal (sigma 1) list sizes summing to n_rows, each >= 1: the
     mass-weighted mean list is ~e times the plain mean, like real IVF
     lists under skewed data."""
 
-    w = np.random.default_rng(seed).lognormal(0.0, 1.0, N_LISTS)
-    raw = w / w.sum() * (n_rows - N_LISTS)
+    w = np.random.default_rng(seed).lognormal(0.0, 1.0, n_lists)
+    raw = w / w.sum() * (n_rows - n_lists)
     sizes = np.floor(raw).astype(np.int64) + 1
     short = n_rows - int(sizes.sum())
     sizes[np.argsort(raw - np.floor(raw))[::-1][:short]] += 1
@@ -191,9 +444,9 @@ def list_sizes(n_rows: int, seed: int):
 
 
 class _SeededCodes:
-    """Random uint8 codes [n_segs, MB, SEG], made on the card chunk by
-    chunk as save_lists reads them, so the 12.9 GiB payload never sits
-    in host memory. A slice's content depends only on (seed, start)."""
+    """Random uint8 codes [n_segs, ...], made on the card chunk by chunk
+    as save_lists reads them, so the 12.9 GiB payload never sits in host
+    memory. A slice's content depends only on (seed, start)."""
 
     dtype = np.dtype(np.uint8)
 
@@ -209,33 +462,37 @@ class _SeededCodes:
                              dtype=torch.uint8, device="cuda", generator=g).cpu().numpy()
 
 
-def write_index(out: Path, n_rows: int, seed: int) -> dict:
+def write_index(out: Path, n_rows: int, seed: int, *, n_lists: int = N_LISTS,
+                pq_m: int = PQ_M, pq_nbits: int = PQ_NBITS,
+                transposed: bool = True) -> dict:
     """Seeded artifacts through the port's own save path: centroids,
-    rotation and codebooks via IVFPQIndex.save, lists via save_lists."""
+    rotation and codebooks via IVFPQIndex.save, lists via save_lists.
+    Segment blocks are [MB, SEG] (transposed) or [SEG, MB] (row-major)."""
 
     from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
     from abstracts_search_tpu_torch.index.lists import CSRLists, save_lists
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    sizes = list_sizes(n_rows, seed)
+    sizes = list_sizes(n_rows, seed, n_lists)
     seg_cnt = -(-sizes // SEG)
     seg_start = np.concatenate([[0], np.cumsum(seg_cnt)[:-1]])
     n_segs = int(seg_cnt.sum())
-    seg_list = np.repeat(np.arange(N_LISTS), seg_cnt)
+    seg_list = np.repeat(np.arange(n_lists), seg_cnt)
     seg_valid = np.clip(sizes[seg_list] - (np.arange(n_segs) - seg_start[seg_list]) * SEG,
                         0, SEG).astype(np.int32)
 
     cent = torch.nn.functional.normalize(
-        torch.randn((N_LISTS, DIM), device="cuda", generator=g), dim=1)
+        torch.randn((n_lists, DIM), device="cuda", generator=g), dim=1)
     rot, _ = torch.linalg.qr(torch.randn((DIM, DIM), device="cuda", generator=g))
     # residual codebooks small next to the unit centroids (|r| ~ 0.3)
-    pqc = 0.01 * torch.randn((PQ_M, 1 << PQ_NBITS, DIM // PQ_M), device="cuda",
+    pqc = 0.01 * torch.randn((pq_m, 1 << pq_nbits, DIM // pq_m), device="cuda",
                              generator=g)
-    idx = IVFPQIndex(N_LISTS, DIM, pq_m=PQ_M, pq_nbits=PQ_NBITS, use_opq=True,
+    idx = IVFPQIndex(n_lists, DIM, pq_m=pq_m, pq_nbits=pq_nbits, use_opq=True,
                      seg_size=SEG, device="cuda")
     idx.set_params(cent.cpu().numpy(), pqc.cpu().numpy(), rot.cpu().numpy())
     idx.n = n_rows
     idx.save(out, include_lists=False)
+    mb = idx.code_bytes
     del idx
 
     # row ids: a seeded permutation of the corpus positions laid out
@@ -249,18 +506,46 @@ def write_index(out: Path, n_rows: int, seed: int) -> dict:
     rows = torch.full((n_segs * SEG,), -1, dtype=torch.int32, device="cuda")
     rows[dest] = torch.randperm(n_rows, device="cuda", generator=g).int()
     del dest
-    mb = PQ_M // 2
-    csr = CSRLists(data=_SeededCodes((n_segs, mb, SEG), seed),
+    blk = (mb, SEG) if transposed else (SEG, mb)
+    csr = CSRLists(data=_SeededCodes((n_segs,) + blk, seed),
                    row_ids=rows.view(n_segs, SEG).cpu().numpy(),
                    seg_valid=seg_valid, seg_start=seg_start.astype(np.int64),
-                   seg_cnt=seg_cnt.astype(np.int32), seg_size=SEG, n_lists=N_LISTS,
-                   n_rows=n_rows, transposed=True)
+                   seg_cnt=seg_cnt.astype(np.int32), seg_size=SEG, n_lists=n_lists,
+                   n_rows=n_rows, transposed=transposed)
     save_lists(csr, out / "lists")
     del rows
     torch.cuda.empty_cache()
-    return {"n_rows": n_rows, "n_segs": n_segs, "seg_cnt_min": int(seg_cnt.min()),
-            "seg_cnt_max": int(seg_cnt.max()),
+    return {"n_rows": n_rows, "n_lists": n_lists, "pq": f"PQ{pq_m}x{pq_nbits}",
+            "transposed": transposed, "n_segs": n_segs,
+            "seg_cnt_min": int(seg_cnt.min()), "seg_cnt_max": int(seg_cnt.max()),
             "codes_gib": n_segs * mb * SEG / 2**30}
+
+
+def release() -> None:
+    """Return the card memory of dropped objects. The HTTP handler class
+    closes over the engine, so a served index sits in a reference cycle
+    that only the cyclic collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def open_index(art: Path, n_rows: int, seed: int, phase: str, **kw):
+    """Write, then load, one artifact; emits the phase line."""
+
+    from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
+
+    shutil.rmtree(art, ignore_errors=True)
+    t = time.perf_counter()
+    info = write_index(art, n_rows, seed, **kw)
+    t_write = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    idx = IVFPQIndex.load(art)
+    t_load = time.perf_counter() - t
+    emit({"phase": phase, **info, "write_seconds": t_write, "load_seconds": t_load,
+          "resident_gib": torch.cuda.memory_allocated() / 2**30,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return idx
 
 
 # -- serve -------------------------------------------------------------------------
@@ -278,9 +563,12 @@ def reconstructions(idx, n: int, seed: int):
     # an empty list shares its start with the next list, so "right"
     # finds the list that owns the segment
     lists = np.searchsorted(p.seg_start, segs, side="right") - 1
-    codes = idx._codes[torch.from_numpy(segs).cuda(), :, torch.from_numpy(within).cuda()]
-    codes = torch.stack([codes & 15, codes >> 4], dim=2).reshape(n, PQ_M).long()
-    resid = idx._pq_cent[torch.arange(PQ_M, device="cuda")[None, :], codes]  # [n, M, dsub]
+    st, wt = torch.from_numpy(segs).cuda(), torch.from_numpy(within).cuda()
+    codes = idx._codes[st, :, wt] if p.transposed else idx._codes[st, wt]   # [n, MB]
+    if idx.pq_nbits == 4:
+        codes = torch.stack([codes & 15, codes >> 4], dim=2).reshape(n, idx.pq_m)
+    m = torch.arange(idx.pq_m, device="cuda")
+    resid = idx._pq_cent[m[None, :], codes.long()]                           # [n, M, dsub]
     v = idx._cent[torch.from_numpy(lists).cuda()] + resid.reshape(n, DIM)
     q = v @ idx._rot.T          # search rotates by q @ rot; rot is orthogonal
     return q.cpu().numpy(), np.asarray(p.row_ids[segs, within], np.int64)
@@ -304,10 +592,62 @@ def probe_near_ties(idx, q, nprobe, tol=1e-5):
     qr = (qt @ idx._rot).to(torch.bfloat16)       # the probe's own operand
     bad = 0
     for r in rows:
-        s = idx._cent_bf16[:N_LISTS].double() @ qr[r].double()
+        s = idx._cent_bf16[: idx.n_lists].double() @ qr[r].double()
         cut = s.sort(descending=True).values[nprobe - 1]
         bad += int(any(s[sets[impl][r]].min() < cut - tol for impl in sets))
     return rows, bad
+
+
+def hold_against_plain(idx, q_sets: dict, own) -> dict:
+    """The kernel path against the plain path on the same resident index
+    at nprobe 2 and 16, and self-hit@10 for the reconstructions."""
+
+    res = {}
+    for nprobe in (2, 16):
+        for name, q in q_sets.items():
+            v, p = idx.search(q, 10, nprobe=nprobe)
+            idx.impl, idx.scan_impl = "torch", "torch"
+            pv, pp = idx.search(q, 10, nprobe=nprobe)
+            idx.impl, idx.scan_impl = "cuda", "cuda"
+            differ = (p != pp).any(axis=1)
+            if differ.any():
+                rows, bad = probe_near_ties(idx, q, nprobe)
+                if bad or not set(np.nonzero(differ)[0]) <= set(rows):
+                    raise AssertionError(
+                        f"kernel path disagrees with the plain path ({name}, "
+                        f"nprobe {nprobe}): {int(differ.sum())} queries")
+            same = ~differ
+            err = float(np.abs(v[same] - pv[same]).max()) if same.any() else 0.0
+            if err > 1e-5 or not np.isfinite(v).all():
+                raise AssertionError(f"scores differ by {err} ({name}, nprobe {nprobe})")
+            res[f"{name}_np{nprobe}"] = {
+                "queries_differing_by_probe_near_ties": int(differ.sum()),
+                "max_abs_err": err, "live_slots": idx.last_scan_stats["live_slots"]}
+            if name == "recon":
+                res[f"{name}_np{nprobe}"]["self_hit_at_10"] = float(
+                    np.mean([own[i] in p[i] for i in range(len(own))]))
+    return res
+
+
+def engine_times(engine, q_text, texts) -> dict:
+    """Batch-256 QPS and single-query p50 through the engine (host clock)."""
+
+    engine.search_batch_encoded(q_text, 10)
+    batch_s = []
+    for _ in range(5):
+        t = time.perf_counter()
+        out = engine.search_batch_encoded(q_text, 10)
+        batch_s.append(time.perf_counter() - t)
+    assert len(out) == 256 and all(len(r) == 10 for r in out)
+    single_s = []
+    for i in range(50):
+        t = time.perf_counter()
+        r = engine.search(texts[i % len(texts)], 10)
+        single_s.append(time.perf_counter() - t)
+    assert len(r) == 10
+    return {"qps_batch256": 256 / statistics.median(batch_s),
+            "batch256_ms_median": statistics.median(batch_s) * 1e3,
+            "single_query_p50_ms": statistics.median(single_s) * 1e3}
 
 
 def profile_batches(engine, q, reps: int = 3) -> dict:
@@ -341,65 +681,50 @@ def profile_batches(engine, q, reps: int = 3) -> dict:
             "top_device_ms": [[n, t / reps / 1e3] for n, t in top]}
 
 
-def serve(idx, seed: int, counts_reset):
+class _LazyIds:
+    """Position -> "W<position>" without a 207M-entry array in RAM."""
 
+    def __getitem__(self, p):
+        return f"W{int(p)}"
+
+
+def queries(idx, seed: int):
     from abstracts_search_tpu_torch.models.registry import HashEmbedder
-    from abstracts_search_tpu_torch.serve.app import run_server
+
+    emb = HashEmbedder(DIM)
+    texts = [f"semantic search query number {i} about topic {i % 97}" for i in range(256)]
+    q_rec, own = reconstructions(idx, 256, seed)
+    return emb, texts, emb.queries(texts), q_rec, own
+
+
+def serve(idx, seed: int, by_path: dict, *, http: bool, path: str, must_launch):
+    """The search path through SearchEngine, counted as ``path``."""
+
     from abstracts_search_tpu_torch.serve.engine import SearchEngine
 
-    ids = _LazyIds()
-    emb = HashEmbedder(DIM)
-    engine = SearchEngine(idx, ids, emb, nprobe=16)
-    texts = [f"semantic search query number {i} about topic {i % 97}" for i in range(256)]
-    q_text = emb.queries(texts)
-    q_rec, own = reconstructions(idx, 256, seed)
+    emb, texts, q_text, q_rec, own = queries(idx, seed)
+    engine = SearchEngine(idx, _LazyIds(), emb, nprobe=16)
 
-    counts_reset()
-    res = {}
-    t0 = time.perf_counter()
-    # kernel path vs plain path on the same resident index
-    for nprobe in (2, 16):
-        for name, q in (("text", q_text), ("recon", q_rec)):
-            v, p = idx.search(q, 10, nprobe=nprobe)
-            idx.impl, idx.scan_impl = "torch", "torch"
-            pv, pp = idx.search(q, 10, nprobe=nprobe)
-            idx.impl, idx.scan_impl = "cuda", "cuda"
-            differ = (p != pp).any(axis=1)
-            if differ.any():
-                rows, bad = probe_near_ties(idx, q, nprobe)
-                if bad or not set(np.nonzero(differ)[0]) <= set(rows):
-                    raise AssertionError(
-                        f"kernel path disagrees with the plain path ({name}, "
-                        f"nprobe {nprobe}): {int(differ.sum())} queries")
-            same = ~differ
-            err = float(np.abs(v[same] - pv[same]).max()) if same.any() else 0.0
-            if err > 1e-5 or not np.isfinite(v).all():
-                raise AssertionError(f"scores differ by {err} ({name}, nprobe {nprobe})")
-            res[f"{name}_np{nprobe}"] = {
-                "queries_differing_by_probe_near_ties": int(differ.sum()),
-                "max_abs_err": err, "live_slots": idx.last_scan_stats["live_slots"]}
-            if name == "recon":
-                res[f"{name}_np{nprobe}"]["self_hit_at_10"] = float(
-                    np.mean([own[i] in p[i] for i in range(len(own))]))
+    def run():
+        t0 = time.perf_counter()
+        res = hold_against_plain(idx, {"text": q_text, "recon": q_rec}, own)
+        res.update(engine_times(engine, q_text, texts))
+        res["profile_batch256"] = profile_batches(engine, q_text)
+        if http:
+            res["http"] = http_round_trip(engine, texts)
+        res["seconds"] = time.perf_counter() - t0
+        return res
 
-    # throughput and latency through the engine
-    engine.search_batch_encoded(q_text, 10)
-    batch_s = []
-    for _ in range(5):
-        t = time.perf_counter()
-        out = engine.search_batch_encoded(q_text, 10)
-        batch_s.append(time.perf_counter() - t)
-    assert len(out) == 256 and all(len(r) == 10 for r in out)
-    single_s = []
-    for i in range(50):
-        t = time.perf_counter()
-        r = engine.search(texts[i % len(texts)], 10)
-        single_s.append(time.perf_counter() - t)
-    assert len(r) == 10
+    res = drive(path, run, must_launch, by_path)
+    res["launches"] = by_path[path]
+    return q_text, res
 
-    res["profile_batch256"] = profile_batches(engine, q_text)
 
-    # HTTP: run_server in a thread on a free port
+def http_round_trip(engine, texts) -> str:
+    """run_server in a thread on a free port: GET, batched POST, healthz."""
+
+    from abstracts_search_tpu_torch.serve.app import run_server
+
     box = []
     th = threading.Thread(target=run_server, kwargs=dict(
         engine=engine, port=0, on_bound=box.append), daemon=True)
@@ -427,47 +752,44 @@ def serve(idx, seed: int, counts_reset):
         box[0].shutdown()
         th.join(timeout=30)
     torch.cuda.synchronize()
-    res.update({
-        "qps_batch256": 256 / statistics.median(batch_s),
-        "batch256_ms_median": statistics.median(batch_s) * 1e3,
-        "single_query_p50_ms": statistics.median(single_s) * 1e3,
-        "http": "ok", "seconds": time.perf_counter() - t0,
-    })
-    return engine, q_text, res
+    return "ok"
 
 
-class _LazyIds:
-    """Position -> "W<position>" without a 207M-entry array in RAM."""
-
-    def __getitem__(self, p):
-        return f"W{int(p)}"
+# -- the kernels line -----------------------------------------------------------------
 
 
-def main_path_kernels(idx, q, nprobe, k, launches):
-    """The kernels line: each kernel timed and bounded at the inputs the
-    batch-256 search gave it."""
-
+def main_path_inputs(idx, q, nprobe):
     from abstracts_search_tpu_torch.index.ivfpq import _normalize_rows
-    from abstracts_search_tpu_torch.ops import adc, topk
 
     qt = torch.from_numpy(_normalize_rows(np.asarray(q, np.float32))).cuda()
+    probes, bias, luts = idx._probe(qt, nprobe)
+    seg_ids, q_ids, valid, _, _ = idx._slots(probes, nprobe)
+    return qt, luts, seg_ids, q_ids, valid
+
+
+def probe_and_scan_rows(idx, q, nprobe, k):
+    """Rows for the probe kernel and the fused scan, timed and bounded
+    at the inputs the batch-256 search gave them."""
+
+    from abstracts_search_tpu_torch.ops import adc, topk
+
+    qt, luts, seg_ids, q_ids, valid = main_path_inputs(idx, q, nprobe)
     qr = (qt @ idx._rot).to(torch.bfloat16)
     x = idx._cent_bf16
     tk = lambda impl: topk.streaming_topk(qr, x, N_LISTS, nprobe, impl=impl)  # noqa: E731
     got, ref = tk("cuda"), tk("torch")
     t_err, t_bad, _ = compare_topk(qr, x, nprobe, got, ref, 1e-5)
+    if t_bad:
+        raise AssertionError("streaming_topk disagrees at the main path's inputs")
     t_bound, t_by = bound(x.numel() * 2 + qr.numel() * 2 + qr.shape[0] * nprobe * 8,
                           2 * qr.shape[0] * N_LISTS * DIM, "bf16")
-    rows = [{"name": "streaming_topk", "route": "cuda", "source": TOPK_SRC,
-             "replaces": TOPK_TPU, "launches": launches["topk"], "max_abs_err": t_err,
-             "index_mismatches": t_bad, "shape": [qr.shape[0], N_LISTS, DIM, nprobe],
-             "ms": cuda_ms(lambda: tk("cuda")),
-             "plain_ms": cuda_ms(lambda: tk("torch"), reps=3, warmup=1),
-             "bound_ms": t_bound, "bound_by": t_by,
-             "library_ms": cuda_ms(lambda: torch.topk(qr @ x.T, nprobe))}]
+    rows = {"topk": {"max_abs_err": t_err, "index_mismatches": t_bad,
+                     "shape": [qr.shape[0], N_LISTS, DIM, nprobe],
+                     "ms": cuda_ms(lambda: tk("cuda")),
+                     "plain_ms": cuda_ms(lambda: tk("torch"), reps=3, warmup=1),
+                     "bound_ms": t_bound, "bound_by": t_by,
+                     "library_ms": cuda_ms(lambda: torch.topk(qr @ x.T, nprobe))}}
 
-    probes, bias, luts = idx._probe(qt, nprobe)
-    seg_ids, q_ids, valid, _, _ = idx._slots(probes, nprobe)
     args = (idx._codes, luts, seg_ids, q_ids, valid, min(k, SEG))
     kv, ki = adc.adc_topk(*args, impl="cuda")
     pv, pi = adc.adc_topk(*args, impl="torch")
@@ -478,27 +800,58 @@ def main_path_kernels(idx, q, nprobe, k, launches):
     mb = idx._codes.shape[1]
     a_bound, a_by = bound(n_slots * (mb * SEG + 12 + min(k, SEG) * 8) + luts.numel() * 4,
                           n_slots * SEG * PQ_M, "f32")
-    rows.append({"name": "adc_topk", "route": "cuda", "source": ADC_SRC,
-                 "replaces": ADC_TPU, "launches": launches["adc_topk"],
-                 "max_abs_err": float((kv[fin] - pv[fin]).abs().max()),
-                 "index_mismatches": int((ki != pi).sum()),
-                 "shape": [n_slots, mb, SEG, min(k, SEG)],
-                 "ms": cuda_ms(lambda: adc.adc_topk(*args, impl="cuda")),
-                 "plain_ms": cuda_ms(lambda: adc.adc_topk(*args, impl="torch"),
-                                     reps=3, warmup=1),
-                 "bound_ms": a_bound, "bound_by": a_by, "library_ms": None})
+    rows["adc_topk"] = {"max_abs_err": float((kv[fin] - pv[fin]).abs().max()),
+                        "index_mismatches": int((ki != pi).sum()),
+                        "shape": [n_slots, mb, SEG, min(k, SEG)],
+                        "ms": cuda_ms(lambda: adc.adc_topk(*args, impl="cuda")),
+                        "plain_ms": cuda_ms(lambda: adc.adc_topk(*args, impl="torch"),
+                                            reps=3, warmup=1),
+                        "bound_ms": a_bound, "bound_by": a_by, "library_ms": None}
     return rows
+
+
+def raw_scan_row(idx, q, nprobe):
+    """The row-major scan kernel at the batch-256 search's inputs."""
+
+    from abstracts_search_tpu_torch.ops import adc
+
+    _, luts, seg_ids, q_ids, _ = main_path_inputs(idx, q, nprobe)
+    run = lambda impl: adc.adc_scan(idx._codes, luts, seg_ids, q_ids,  # noqa: E731
+                                    transposed=False, impl=impl)
+    if not torch.equal(run("cuda"), run("torch")):
+        raise AssertionError("adc_scan disagrees at the main path's inputs")
+    n_slots, mb = seg_ids.numel(), idx._codes.shape[2]
+    b, by = bound(n_slots * (mb * SEG + 4 * SEG + 8) + luts.numel() * 4,
+                  n_slots * SEG * idx.pq_m, "f32")
+    return {"max_abs_err": 0.0, "shape": [n_slots, SEG, mb, idx.pq_m, idx.ksub],
+            "ms": cuda_ms(lambda: run("cuda")),
+            "plain_ms": cuda_ms(lambda: run("torch"), reps=3, warmup=1),
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
+def kernels_line(rows: dict, by_path: dict) -> list:
+    out = []
+    for key, (name, source, replaces) in KERNELS.items():
+        row = dict(rows[key])
+        if key != "adc_kernel_t":
+            paths = {p: c[key] for p, c in by_path.items() if c.get(key)}
+            row["launches"] = sum(paths.values())
+            row["launches_by_path"] = paths
+        if row["launches"] <= 0:
+            raise AssertionError(f"{key} never launched")
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    **row})
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-rows", type=int, default=206_962_688)
-    ap.add_argument("--phases", default="device,build,kernels,index,serve",
+    ap.add_argument("--phases", default="device,build,kernels,flat,index,serve,legacy",
                     help="comma-separated subset, for development runs")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -509,7 +862,7 @@ def main() -> int:
 
     import abstracts_search_tpu_torch  # noqa: F401  (pins TF32 off)
     from abstracts_search_tpu_torch.device import assert_exact_f32
-    from abstracts_search_tpu_torch.ops import _build, adc, topk
+    from abstracts_search_tpu_torch.ops import _build
 
     assert_exact_f32()
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
@@ -525,49 +878,57 @@ def main() -> int:
               "nvcc_seconds": _build.build_seconds,
               "libraries": sorted(_build.build_all())})
 
+    rows, by_path = {}, {}
     if "kernels" in phases:
         t = time.perf_counter()
-        res = check_kernels(args.seed)
+        res, rows["adc_kernel_t"] = check_kernels(args.seed)
         emit({"phase": "kernels", "seconds": time.perf_counter() - t, **res})
 
-    if "index" not in phases:
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-
-    from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
+    if "flat" in phases:
+        t = time.perf_counter()
+        res, flat_rows = flat_phase(args.seed, by_path)
+        rows["topk_fast"] = flat_rows["topk_fast"]
+        emit({"phase": "flat", "seconds": time.perf_counter() - t, **res})
 
     art = Path(__file__).resolve().parent / "build" / "smoke_index"
-    shutil.rmtree(art, ignore_errors=True)
     try:
-        t = time.perf_counter()
-        info = write_index(art, args.n_rows, args.seed)
-        t_write = time.perf_counter() - t
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        idx = IVFPQIndex.load(art)
-        t_load = time.perf_counter() - t
-        emit({"phase": "index", **info, "write_seconds": t_write,
-              "load_seconds": t_load,
-              "resident_gib": torch.cuda.memory_allocated() / 2**30,
-              "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if "index" in phases:
+            idx = open_index(art, args.n_rows, args.seed, "index")
+            if "serve" in phases:
+                q_text, res = serve(idx, args.seed, by_path, http=True, path="serve",
+                                    must_launch=("topk", "adc_topk"))
+                emit({"phase": "serve", "nprobe": 16, "k": 10, **res})
+                rows.update(probe_and_scan_rows(idx, q_text, 16, 10))
+                if "flat" in phases:
+                    rows["topk"]["flat"] = flat_rows["topk_flat"]
+            del idx
+            release()
 
-        if "serve" in phases:
-            def reset():
-                topk.launches = 0
-                adc.launches = 0
-
-            _, q_text, res = serve(idx, args.seed, reset)
-            launches = {"topk": topk.launches, "adc_topk": adc.launches}
-            res["launches"] = launches
-            emit({"phase": "serve", "nprobe": 16, "k": 10, **res})
-            if min(launches.values()) <= 0:
-                raise AssertionError(f"a kernel never launched on the main path: {launches}")
-            emit({"kernels": main_path_kernels(idx, q_text, 16, 10, launches)})
+        if "legacy" in phases:
+            t = time.perf_counter()
+            idx = open_index(art, args.n_rows, args.seed, "legacy_index", transposed=False)
+            q_text, res = serve(idx, args.seed, by_path, http=False, path="legacy",
+                                must_launch=("topk", "adc_kernel_packed4"))
+            rows["adc_kernel_packed4"] = raw_scan_row(idx, q_text, 16)
+            del idx
+            release()
+            idx = open_index(art, PQ8["n_rows"], args.seed + 3, "legacy_pq8_index",
+                             n_lists=PQ8["n_lists"], pq_m=PQ8["pq_m"],
+                             pq_nbits=PQ8["pq_nbits"], transposed=False)
+            q8, res8 = serve(idx, args.seed, by_path, http=False, path="legacy_pq8",
+                             must_launch=("topk", "adc_kernel"))
+            rows["adc_kernel"] = raw_scan_row(idx, q8, 16)
+            del idx
+            release()
+            emit({"phase": "legacy", "nprobe": 16, "k": 10, "pq128x4_rows": res,
+                  "pq64x8_rows": res8, "seconds": time.perf_counter() - t})
     finally:
         shutil.rmtree(art, ignore_errors=True)
 
+    if set(KERNELS) <= set(rows):
+        emit({"kernels": kernels_line(rows, by_path)})
+    elif {"kernels", "flat", "index", "serve", "legacy"} <= phases:
+        raise AssertionError(f"kernel rows missing: {set(KERNELS) - set(rows)}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,11 +1,16 @@
-"""The port's fused ADC scan + per-slot top-kp (plain PyTorch version)
-against the JAX package's ``adc_topk_xla(transposed=True)`` and
-``adc_topk_pallas(interpret=True)``.
+"""The port's ADC scans (plain PyTorch versions) against the JAX
+package's.
 
-Rows must be identical wherever a value is finite (against the Pallas
-kernel everywhere: both report row 0 for an empty slot, where XLA's
-top_k counts on through the masked rows). Values agree to rtol=1e-5:
-each side sums the M lookups in f32, in another order.
+``adc_topk`` against ``adc_topk_xla(transposed=True)`` and
+``adc_topk_pallas(interpret=True)``: rows must be identical wherever a
+value is finite (against the Pallas kernel everywhere: both report row 0
+for an empty slot, where XLA's top_k counts on through the masked rows).
+Values agree to rtol=1e-5: each side sums the M lookups in f32, in
+another order.
+
+``adc_scan`` against ``adc_scan_xla`` and ``adc_scan_pallas(interpret=
+True)`` for every layout: equal. Its LUT values are dyadic (multiples of
+1/8 below 8), so every sum is exact in any order.
 """
 
 import jax.numpy as jnp
@@ -13,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from abstracts_search_tpu.ops.adc import adc_topk_pallas, adc_topk_xla
-from abstracts_search_tpu_torch.ops.adc import adc_topk
+from abstracts_search_tpu.ops.adc import (adc_scan_pallas, adc_scan_xla, adc_topk_pallas,
+                                          adc_topk_xla)
+from abstracts_search_tpu_torch.ops.adc import adc_scan, adc_topk
 
 
 def _inputs(ksub, m, seed, n_segs=6, seg=32, q=3, spq=4):
@@ -100,3 +106,49 @@ def test_cuda_impl_refuses_cpu_tensors():
     args = [torch.from_numpy(a) for a in (codes_t, luts, seg_ids, q_ids, valid)]
     with pytest.raises(ValueError, match="CUDA"):
         adc_topk(*args, 4, impl="cuda")
+
+
+SCAN_LAYOUTS = {
+    #                     ksub, M, transposed, packed  (TPU kernel)
+    "t_packed":          (16, 8, True, True),          # _adc_kernel_t
+    "t_bytes":           (256, 4, True, False),        # _adc_kernel_t
+    "rows_packed":       (16, 8, False, True),         # _adc_kernel_packed4
+    "rows_bytes":        (256, 4, False, False),       # _adc_kernel
+    "rows_4bit_bytes":   (16, 4, False, False),        # _adc_kernel, legacy 4-bit
+}
+
+
+@pytest.mark.parametrize("layout", list(SCAN_LAYOUTS))
+def test_scan_matches_jax(layout):
+    ksub, m, transposed, packed = SCAN_LAYOUTS[layout]
+    codes, codes_t, luts, seg_ids, q_ids, _ = _inputs(ksub, m, seed=len(layout))
+    luts = np.random.default_rng(9).integers(-64, 64, luts.shape).astype(np.float32) / 8
+    if packed:
+        wire = codes[..., 0::2] | (codes[..., 1::2] << 4)       # [n_segs, SEG, M/2]
+    else:
+        wire = codes
+    payload = np.ascontiguousarray(wire.transpose(0, 2, 1) if transposed else wire)
+    got = adc_scan(*(torch.from_numpy(a) for a in (payload, luts, seg_ids, q_ids)),
+                   transposed=transposed, impl="torch").numpy()
+    jargs = tuple(jnp.asarray(a) for a in (payload, luts, seg_ids, q_ids))
+    assert got.dtype == np.float32 and got.shape == (len(seg_ids), codes.shape[1])
+    np.testing.assert_array_equal(got, np.asarray(adc_scan_xla(*jargs,
+                                                              transposed=transposed)))
+    np.testing.assert_array_equal(got, np.asarray(adc_scan_pallas(
+        *jargs, interpret=True, transposed=transposed)))
+    everything = np.full(len(seg_ids), codes.shape[1], np.int32)
+    np.testing.assert_array_equal(got, _numpy_scores(codes, luts, seg_ids, q_ids,
+                                                     everything))
+
+
+def test_scan_validates_args():
+    codes, codes_t, luts, seg_ids, q_ids, _ = _inputs(16, 8, seed=6)
+    args = [torch.from_numpy(a) for a in (codes_t, luts, seg_ids, q_ids)]
+    with pytest.raises(ValueError):
+        adc_scan(*args, transposed=False, impl="torch")            # SEG is not M/2
+    with pytest.raises(ValueError):
+        adc_scan(args[0], args[1], args[2], args[3][:-1], transposed=True, impl="torch")
+    with pytest.raises(ValueError, match="CUDA"):
+        adc_scan(*args, transposed=True, impl="cuda")
+    with pytest.raises(ValueError):
+        adc_scan(*args, transposed=True, impl="xla")

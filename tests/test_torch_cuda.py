@@ -40,6 +40,61 @@ def test_topk_kernel_matches_plain(cuda, dtype, qn, n, n_valid, k):
     assert torch.equal(ki, pi)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qn,n,n_valid,k,chunk,sign", [
+    (3, 1024, 1024, 10, 256, 0), (40, 2048, 1500, 24, 512, 0), (5, 512, 7, 16, 256, 0),
+    (2, 512, 0, 10, 128, 0), (9, 4096, 4000, 64, 1024, -1), (1, 8192, 8192, 1, 4096, 0)])
+def test_fast_topk_kernel_matches_plain_bit_for_bit(cuda, dtype, qn, n, n_valid, k, chunk,
+                                                    sign):
+    """Small integers: every sum is exact, so values and rows must be
+    equal, truncation ties, sentinel tail and negative scores included."""
+    g = torch.Generator(device=cuda).manual_seed(qn + k)
+    if sign:       # every score negative: q > 0, x < 0
+        q = torch.randint(1, 4, (qn, 64), device=cuda, generator=g).float()
+        x = -torch.randint(1, 4, (n, 64), device=cuda, generator=g).float()
+    else:
+        q = torch.randint(-3, 4, (qn, 64), device=cuda, generator=g).float()
+        x = torch.randint(-3, 4, (n, 64), device=cuda, generator=g).float()
+    q, x = q.to(dtype), x.to(dtype)
+    kv, ki = topk.streaming_topk(q, x, n_valid, k, chunk=chunk, impl="cuda", mode="fast")
+    pv, pi = topk.streaming_topk(q, x, n_valid, k, chunk=chunk, impl="torch", mode="fast")
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("layout", ["t_packed", "t_bytes", "rows_packed", "rows_bytes"])
+@pytest.mark.parametrize("seg", [32, 256, 512])
+def test_adc_scan_kernel_matches_plain_bit_for_bit(cuda, layout, seg):
+    g = torch.Generator(device=cuda).manual_seed(seg + len(layout))
+    m, ksub = (16, 16) if layout.endswith("packed") else (8, 256)
+    mb = m // 2 if ksub == 16 else m
+    transposed = layout.startswith("t_")
+    shape = (50, mb, seg) if transposed else (50, seg, mb)
+    codes = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda, generator=g)
+    luts = torch.randn((7, m, ksub), device=cuda, generator=g)
+    n_slots = 300
+    seg_ids = torch.randint(0, 50, (n_slots,), dtype=torch.int32, device=cuda, generator=g)
+    q_ids = (torch.arange(n_slots, device=cuda) * 7 // n_slots).int()
+    got = adc.adc_scan(codes, luts, seg_ids, q_ids, transposed=transposed, impl="cuda")
+    ref = adc.adc_scan(codes, luts, seg_ids, q_ids, transposed=transposed, impl="torch")
+    assert torch.equal(got, ref)
+
+
+def test_flat_index_on_the_card_matches_the_cpu(cuda):
+    from abstracts_search_tpu_torch.index import FlatIndex
+
+    rng = np.random.default_rng(1)
+    x = rng.integers(-3, 4, (3000, 32)).astype(np.float32)
+    q = rng.integers(-3, 4, (7, 32)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        idx = FlatIndex(chunk=256, dtype=torch.float32, device=dev)
+        idx.add(x[:1000])
+        idx.add(x[1000:])
+        out[dev] = idx.search(q, 12)
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+
+
 @pytest.mark.parametrize("ksub,m", [(16, 16), (256, 8)])
 @pytest.mark.parametrize("seg,kp", [(32, 4), (256, 10), (512, 100)])
 def test_adc_kernel_matches_plain_bit_for_bit(cuda, ksub, m, seg, kp):
@@ -60,6 +115,14 @@ def test_adc_kernel_matches_plain_bit_for_bit(cuda, ksub, m, seg, kp):
 
 
 def test_index_on_the_card_matches_the_cpu(cuda):
+    _index_on_the_card_matches_the_cpu(transposed=True)
+
+
+def test_row_major_index_on_the_card_matches_the_cpu(cuda):
+    _index_on_the_card_matches_the_cpu(transposed=False)
+
+
+def _index_on_the_card_matches_the_cpu(transposed):
     from abstracts_search_tpu_torch.index import CSRLists, IVFPQIndex
 
     rng = np.random.default_rng(0)
@@ -71,11 +134,13 @@ def test_index_on_the_card_matches_the_cpu(cuda):
     seg_list = np.repeat(np.arange(n_lists), cnt)
     valid = np.clip(sizes[seg_list] - (np.arange(n_segs) - start[seg_list]) * seg, 0, seg)
     rows = np.arange(n_segs * seg, dtype=np.int32).reshape(n_segs, seg)
-    csr = CSRLists(data=rng.integers(0, 256, (n_segs, m // 2, seg), dtype=np.uint8),
-                   row_ids=rows, seg_valid=valid.astype(np.int32),
+    data = rng.integers(0, 256, (n_segs, m // 2, seg), dtype=np.uint8)
+    if not transposed:
+        data = np.ascontiguousarray(data.transpose(0, 2, 1))
+    csr = CSRLists(data=data, row_ids=rows, seg_valid=valid.astype(np.int32),
                    seg_start=start.astype(np.int64), seg_cnt=cnt.astype(np.int32),
                    seg_size=seg, n_lists=n_lists, n_rows=int(sizes.sum()),
-                   transposed=True)
+                   transposed=transposed)
     cent = rng.standard_normal((n_lists, d)).astype(np.float32)
     cent /= np.linalg.norm(cent, axis=1, keepdims=True)
     pqc = 0.05 * rng.standard_normal((m, 16, d // m)).astype(np.float32)

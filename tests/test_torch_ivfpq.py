@@ -7,10 +7,14 @@ identical. Scores agree to rtol=1e-5, atol=1e-5: both sides compute the
 same f32 bias and LUT sums, but in another accumulation order.
 """
 
+import dataclasses
+import shutil
+
 import numpy as np
 import pytest
 
 from abstracts_search_tpu.index.ivfpq import IVFPQIndex as JaxIVFPQ
+from abstracts_search_tpu.index.lists import save_lists as jax_save_lists
 from abstracts_search_tpu.parallel import build_mesh
 from abstracts_search_tpu_torch.index import IVFPQIndex, index_from_numpy
 
@@ -69,6 +73,31 @@ def test_search_matches_jax(built, route):
         np.testing.assert_allclose(v, jv, rtol=1e-5, atol=1e-5)
         if k == 300:
             assert (p == -1).any() and np.isneginf(v[p == -1]).all()
+
+
+def test_row_major_artifact_matches_jax(built, tmp_path):
+    """A legacy row-major artifact (segment blocks [SEG, MB], written by
+    the JAX package's save_lists) searched by both packages: the JAX
+    scores branch (adc_scan_xla) against the port's (adc_scan)."""
+    jidx, art, q = built
+    rows_art = tmp_path / "rows"
+    shutil.copytree(art, rows_art)
+    blocks = np.ascontiguousarray(np.asarray(jidx.packed.data).transpose(0, 2, 1))
+    jax_save_lists(dataclasses.replace(jidx.packed, data=blocks, transposed=False),
+                   rows_art / "lists")
+    j2 = JaxIVFPQ.load(rows_art, mesh=build_mesh(), chunk=128, scan_impl="map")
+    idx = IVFPQIndex.load(rows_art, device="cpu", chunk=128)
+    assert not idx.packed.transposed and idx._codes.shape == blocks.shape
+    for nprobe, k in ((1, 5), (4, 10), (N_LISTS, 10), (1, 300)):
+        jv, jp = j2.search(q, k, nprobe=nprobe)
+        v, p = idx.search(q, k, nprobe=nprobe)
+        np.testing.assert_array_equal(p, jp)
+        np.testing.assert_allclose(v, jv, rtol=1e-5, atol=1e-5)
+    # and the same hits as the transposed artifact the blocks came from
+    v, p = idx.search(q, 10, nprobe=4)
+    tv, tp = IVFPQIndex.load(art, device="cpu", chunk=128).search(q, 10, nprobe=4)
+    np.testing.assert_array_equal(p, tp)
+    np.testing.assert_array_equal(v, tv)
 
 
 def test_save_load_roundtrip_is_bit_identical(built, tmp_path):

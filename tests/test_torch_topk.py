@@ -1,9 +1,12 @@
 """The port's streaming top-k (plain PyTorch version) against the JAX
 package's ``streaming_topk`` (``impl="xla"`` and ``"pallas_interpret"``).
 
-Same numpy inputs, made from a seed, go through both. Indices must be
-identical (ties go to the lowest row on both sides). Values agree to
-rtol=1e-5, atol=1e-6: both accumulate in f32, in another order.
+Same numpy inputs, made from a seed, go through both. Exact mode:
+indices must be identical (ties go to the lowest row on both sides) and
+values agree to rtol=1e-5, atol=1e-6 (both accumulate in f32, in another
+order). Fast mode: values and indices bit-equal. Its inputs are small
+integers, so every dot product is exact in any order, and truncated
+values tie everywhere.
 """
 
 import jax.numpy as jnp
@@ -77,13 +80,78 @@ def test_validates_args():
         streaming_topk(q, torch.zeros((64, 8)), 64, 5, chunk=64, impl="pallas")
 
 
-def test_fast_mode_waits_for_its_kernel():
-    with pytest.raises(NotImplementedError, match="fast mode"):
-        streaming_topk(torch.zeros((2, 8)), torch.zeros((64, 8)), 64, 5, chunk=64,
-                       mode="fast")
+FAST_CASES = {
+    #              Q, D,  N,    chunk, n_valid, k,  q range,    x range,     dtype
+    "small_ints":  (5, 16, 512, 64, 512, 10, (-3, 3), (-3, 3), "f32"),
+    # |q . x| up to ~7.8e6 < 2**23: exact sums, and truncation to
+    # 23 - 7 mantissa bits merges nearby values into ties
+    "truncating":  (4, 16, 1024, 128, 1000, 12, (-700, 700), (-700, 700), "f32"),
+    "negative":    (4, 16, 512, 128, 512, 10, (1, 700), (-700, -1), "f32"),
+    "n_valid_lt_k": (3, 16, 256, 128, 5, 10, (-3, 3), (-3, 3), "f32"),
+    "none_valid":  (2, 16, 256, 128, 0, 10, (-3, 3), (-3, 3), "f32"),
+    "k_gt_16":     (3, 16, 512, 64, 450, 24, (-3, 3), (-3, 3), "f32"),
+    "bf16":        (5, 16, 512, 64, 480, 10, (-3, 3), (-3, 3), "bf16"),
+}
+
+
+def _fast_inputs(case):
+    qn, d, n, chunk, n_valid, k, qr, xr, dtype = FAST_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q = rng.integers(qr[0], qr[1] + 1, (qn, d)).astype(np.float32)
+    x = rng.integers(xr[0], xr[1] + 1, (n, d)).astype(np.float32)
+    return q, x, n_valid, k, chunk, dtype
+
+
+@pytest.mark.parametrize("jax_impl", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("case", list(FAST_CASES))
+def test_fast_mode_matches_jax_bit_for_bit(case, jax_impl):
+    q, x, n_valid, k, chunk, dtype = _fast_inputs(case)
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    v, i = streaming_topk(torch.from_numpy(q).to(tdt), torch.from_numpy(x).to(tdt),
+                          n_valid, k, chunk=chunk, impl="torch", mode="fast")
+    jv, ji = jax_topk(jnp.asarray(q, jdt), jnp.asarray(x, jdt), jnp.int32(n_valid),
+                      k, chunk=chunk, impl=jax_impl, mode="fast")
+    assert v.dtype == torch.float32 and i.dtype == torch.int32
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    if n_valid < k:
+        assert np.isneginf(v.numpy()[:, max(n_valid, 0):]).all()
+
+
+def test_fast_mode_worked_case():
+    """Equal truncated values: the earlier chunk wins, then the higher
+    lane. With fewer valid rows than k, the tail holds chunk 0's sentinel
+    rows, highest lane first, at -inf."""
+    q = torch.ones((1, 4))
+    x = torch.zeros((256, 4))
+    x[[3, 10, 130, 200]] = 1
+    v, i = streaming_topk(q, x, 256, 4, chunk=128, mode="fast")
+    assert i.tolist() == [[10, 3, 200, 130]] and v.tolist() == [[4.0] * 4]
+    v, i = streaming_topk(q, x, 6, 10, chunk=128, mode="fast")
+    assert i.tolist() == [[3, 5, 4, 2, 1, 0, 127, 126, 125, 124]]
+    assert v.tolist() == [[4.0, 0, 0, 0, 0, 0] + [float("-inf")] * 4]
+
+
+def test_fast_mode_keys_round_trip():
+    """Decoding a packed key gives the score truncated toward -inf and
+    the lane: a negative score grows in magnitude even when its low bits
+    are zero, since its key's low bits are ones."""
+    from abstracts_search_tpu_torch.ops.topk import _pack_keys, _unpack_keys
+
+    s = torch.tensor([[1.0 + 2**-22, -(1.0 + 2**-22), 3.5, -0.75]])
+    lanes = torch.tensor([5, 0, 7, 2], dtype=torch.int32)
+    v, lane = _unpack_keys(_pack_keys(s, lanes, 3), 3)
+    assert lane[0].tolist() == lanes.tolist()
+    assert v[0, 0] == 1.0 and v[0, 1] < -(1.0 + 2**-22)
+    assert v[0, 2] == 3.5
+    assert v[0, 3] == torch.tensor(-0.75).view(torch.int32).add(7).view(torch.float32)
 
 
 def test_cuda_impl_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         streaming_topk(torch.zeros((2, 8)), torch.zeros((64, 8)), 64, 5, chunk=64,
                        impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        streaming_topk(torch.zeros((2, 8)), torch.zeros((64, 8)), 64, 5, chunk=64,
+                       impl="cuda", mode="fast")
