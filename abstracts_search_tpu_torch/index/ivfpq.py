@@ -198,15 +198,22 @@ class IVFPQIndex:
         a few of this index's own inputs, so a faulty kernel fails the
         load instead of a request."""
         _build.build_all()
-        q = self._cent_bf16[: min(4, self.n_lists)]
-        k = min(8, self.n_lists)
-        kv, ki = streaming_topk(q, self._cent_bf16, self.n_lists, k,
-                                chunk=self.chunk, impl="cuda")
-        pv, pi = streaming_topk(q, self._cent_bf16, self.n_lists, k,
-                                chunk=self.chunk, impl="torch")
-        if not (torch.allclose(kv, pv, rtol=1e-5, atol=1e-5)
-                and torch.equal(ki[:, 0], pi[:, 0])):
-            raise RuntimeError("streaming_topk kernel disagrees with its plain version")
+        x = self._cent_bf16
+        # the probe's k at search's and the engine's nprobe, on the
+        # 128-query tile (Q 4, 5) and on the 256-query tile of batched
+        # probes (Q 129), each Q no multiple of its tile: every index list
+        # must be the plain one, except where the two sums in another
+        # order swap scores equal to within 1e-5
+        for qn, k in ((4, 8), (5, 16), (129, 16)):
+            q = x[: min(qn, self.n_lists)]
+            k = min(k, self.n_lists)
+            kv, ki = streaming_topk(q, x, self.n_lists, k, chunk=self.chunk, impl="cuda")
+            pv, pi = streaming_topk(q, x, self.n_lists, k, chunk=self.chunk, impl="torch")
+            own = torch.einsum("qd,qkd->qk", q.float(), x[ki.long()].float())
+            if not (torch.allclose(kv, pv, rtol=1e-5, atol=1e-5)
+                    and torch.equal(ki[:, 0], pi[:, 0])
+                    and bool(((ki == pi) | ((own - pv).abs() <= 1e-5)).all())):
+                raise RuntimeError("streaming_topk kernel disagrees with its plain version")
         n_slots = min(8, self._codes.shape[0])
         luts = torch.randn((2, self.pq_m, self.ksub), device=self.device,
                            generator=torch.Generator(device=self.device).manual_seed(0))

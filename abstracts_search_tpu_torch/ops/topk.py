@@ -21,21 +21,31 @@ Two selection modes, as in the JAX package:
 
 Two implementations behind ``impl``:
 
-- ``"cuda"``: the hand-written kernel in ``csrc/topk.cu`` (a split-
-  corpus pass with per-range top-k lists, then a merge pass), templated
-  on the mode;
+- ``"cuda"``: the hand-written kernels in ``csrc/topk.cu``, templated on
+  the mode. A first pass splits the corpus into ranges, one block per
+  (range, query tile), each keeping a sorted top-k list per query in
+  shared memory; a second pass merges the range lists. For bf16
+  operands the first pass multiplies on tensor cores (``wgmma`` fed by
+  TMA copies), holds up to 256 queries per block so the corpus is read
+  once, and selects straight from the accumulator registers: only
+  scores that beat their query's current k-th entry reach shared
+  memory. f32 operands keep an f32-FMA scan, since TF32 would break
+  their true-f32 contract. ``_plan`` chooses the route, the queries per
+  block and the ranges;
 - ``"torch"``: the plain version, a chunked scan with a running [Q, k]
   result: ``_topk_torch`` (twin of the JAX package's ``_topk_xla``) and
   ``_topk_torch_fast`` (twin of ``_topk_xla_fast``).
 
 ``"auto"`` takes the kernel for a CUDA tensor and the plain version for
-a CPU tensor. Operands are f32 (true IEEE f32 products) or bf16 (widened
-to f32, where bf16 products are exact); scores always accumulate in f32.
+a CPU tensor. Operands are f32 (true IEEE f32 products) or bf16 (whose
+products are exact in f32); scores always accumulate in f32.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -53,9 +63,6 @@ FAST_INVALID = -1.0e38
 # exact mode and fast mode
 launches = 0
 fast_launches = 0
-
-_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
-_BLOCKS_PER_SM = 8
 
 
 def _select(vals: torch.Tensor, idx: torch.Tensor, k: int):
@@ -119,13 +126,102 @@ def _lib():
     lib = _build.library("topk")
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.topk_launch.argtypes = [vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, vp, vp,
+        lib.topk_launch.argtypes = [vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, i, vp, vp,
                                     vp, vp]
         lib.topk_launch.restype = i
-        lib.topk_smem_bytes.argtypes = [i, i]
+        lib.topk_smem_bytes.argtypes = [i, i, i]
         lib.topk_smem_bytes.restype = ctypes.c_size_t
         lib._typed = True
     return lib
+
+
+# Hopper: shared memory one block may use
+_BLOCK_SMEM = 232_448
+
+# first-pass configurations of csrc/topk.cu (topk_launch's ``cfg``).
+# f32 operands, the FMA scan: cfg -> (queries per block, corpus rows per
+# tile, blocks per SM); it stages 32 deep. bf16, the wgmma scan (one
+# block per SM): cfg -> (query rows per tile, corpus rows per tile).
+_FMA = {0: (32, 64, 8), 1: (8, 128, 8)}
+_FMA_DK = 32
+_TC = {2: (128, 256), 3: (256, 128)}
+# the wgmma scan's ring (stages of 64-deep bf16 slices) and candidate
+# slots per query
+_TC_STAGES, _TC_DK, _TC_CB = 3, 64, 16
+
+
+class Plan(NamedTuple):
+    cfg: int             # first-pass configuration (``_FMA`` or ``_TC``)
+    qb: int              # queries per block
+    tn: int              # corpus rows per tile
+    n_ranges: int        # corpus ranges: grid x of the first pass
+    range_rows: int      # rows per range, a multiple of ``tn``
+    smem: int            # shared memory bytes per block
+
+    @property
+    def tensor_cores(self) -> bool:
+        return self.cfg in _TC
+
+
+def _smem(cfg: int, qb: int, k: int) -> int:
+    """Mirror of ``topk_smem_bytes`` in csrc/topk.cu."""
+    if cfg in _FMA:   # query and corpus slices (rows padded by one), scores, lists
+        qt, tn, _ = _FMA[cfg]
+        return 4 * (qt * _FMA_DK + tn * (_FMA_DK + 1) + qt * tn) + 8 * qt * k
+    # 1 KiB to align the ring, the ring, 64 bytes of stage barriers; per
+    # query a list of k 8-byte entries, the candidate slots and a count
+    qt, tn = _TC[cfg]
+    ring = _TC_STAGES * (qt + tn) * _TC_DK * 2
+    return 1024 + ring + 64 + 8 * qb * (k + _TC_CB) + 4 * qb
+
+
+def _plan(qn: int, n_eff: int, k: int, dtype, sms: int) -> Plan:
+    """The launch plan for Q ``qn`` queries over ``n_eff`` valid rows.
+
+    f32 operands take the FMA scan (query tile 8 or 32). bf16 operands
+    take the wgmma scan with the smallest query tile that holds all
+    ``qn`` queries (128 or 256), so the corpus is read once; a k whose
+    lists do not fit moves to the 128-query tile, which then serves fewer
+    queries per block, halving down to 1. The ranges fill one wave of the
+    card's ``sms`` SMs, tile-aligned. Raises ValueError for a k no
+    configuration holds."""
+    if dtype == torch.float32:
+        cfg = 1 if qn <= 8 or _smem(0, 32, k) > _BLOCK_SMEM else 0
+        qb, tn, per_sm = _FMA[cfg]
+    elif dtype == torch.bfloat16:
+        # configurations are numbered by query tile; take the first that
+        # holds every query, then the 128-query tile with fewer queries
+        # per block while the lists do not fit
+        cfg = min((c for c in _TC if _TC[c][0] >= qn), default=max(_TC))
+        qb = min(_TC[cfg][0], qn)
+        if _smem(cfg, qb, k) > _BLOCK_SMEM:
+            cfg = min(_TC)
+            qb = min(_TC[cfg][0], qn)
+            while qb > 1 and _smem(cfg, qb, k) > _BLOCK_SMEM:
+                qb //= 2
+        tn, per_sm = _TC[cfg][1], 1
+    else:
+        raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
+    smem = _smem(cfg, qb, k)
+    if smem > _BLOCK_SMEM:
+        raise ValueError(f"k={k} needs more shared memory than a block has")
+    q_tiles = -(-qn // qb)
+    want = max(1, sms * per_sm // q_tiles)
+    n_ranges = max(1, min(want, -(-n_eff // tn)))
+    range_rows = -(-max(n_eff, 1) // n_ranges)
+    range_rows = -(-range_rows // tn) * tn
+    n_ranges = max(1, -(-n_eff // range_rows))
+    return Plan(cfg, qb, tn, n_ranges, range_rows, smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(qn: int, n_eff: int, k: int, dtype, device: int) -> Plan:
+    """``_plan`` for this card, checked once against the kernel's own
+    shared-memory count."""
+    p = _plan(qn, n_eff, k, dtype, torch.cuda.get_device_properties(device).multi_processor_count)
+    if _lib().topk_smem_bytes(p.cfg, p.qb, k) != p.smem:
+        raise RuntimeError("the top-k plan and csrc/topk.cu disagree on shared memory")
+    return p
 
 
 def _topk_cuda(q, x, n_valid: int, k: int, chunk: int = 0, lane_bits: int = 0):
@@ -143,31 +239,23 @@ def _topk_cuda(q, x, n_valid: int, k: int, chunk: int = 0, lane_bits: int = 0):
     q = q.to(x.dtype).contiguous()
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    lib = _lib()
     qn, d = q.shape
-    qt = 8 if qn <= 8 or lib.topk_smem_bytes(32, k) > _SMEM_LIMIT else 32
-    if lib.topk_smem_bytes(qt, k) > _SMEM_LIMIT:
-        raise ValueError(f"k={k} needs more shared memory than a block has")
-    tn = 64 if qt == 32 else 128
     n_eff = max(0, min(int(n_valid), x.shape[0]))
-    q_tiles = -(-qn // qt)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    want = max(1, -(-sms * _BLOCKS_PER_SM // q_tiles))
-    n_ranges = max(1, min(want, -(-n_eff // tn)))
-    range_rows = -(-max(n_eff, 1) // n_ranges)
-    range_rows = -(-range_rows // tn) * tn
-    n_ranges = max(1, -(-n_eff // range_rows))
+    out_v = torch.empty((qn, k), dtype=torch.float32, device=x.device)
+    out_i = torch.empty((qn, k), dtype=torch.int32, device=x.device)
+    if qn == 0 or k == 0:
+        return out_v, out_i
+    lib = _lib()
+    p = _launch_plan(qn, n_eff, k, x.dtype, x.device.index)
+    # 16-byte rows and bases: the tensor-core scan stages by TMA
+    vec = d % 8 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
     # fast-mode key layout: the chunk's row count and the corpus's chunks
     chunk_log2, n_chunks = (chunk.bit_length() - 1, x.shape[0] // chunk) if fast else (0, 0)
     # one 8-byte list entry per candidate: (f32, i32) exact, int64 key fast
-    cand = torch.empty((qn, n_ranges, k), dtype=torch.int64, device=x.device)
-    out_v = torch.empty((qn, k), dtype=torch.float32, device=x.device)
-    out_i = torch.empty((qn, k), dtype=torch.int32, device=x.device)
-    if qn == 0:
-        return out_v, out_i
+    cand = torch.empty((qn, p.n_ranges, k), dtype=torch.int64, device=x.device)
     err = lib.topk_launch(
-        q.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), qn, n_eff, d,
-        k, qt, n_ranges, range_rows, int(fast), lane_bits, chunk_log2, n_chunks,
+        q.data_ptr(), x.data_ptr(), p.cfg, int(vec), qn, n_eff, d, k, p.qb, p.n_ranges,
+        p.range_rows, int(fast), lane_bits, chunk_log2, n_chunks,
         cand.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "topk")

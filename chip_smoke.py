@@ -8,11 +8,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
   device  the card (nvidia-smi name and power limit), torch/CUDA
           versions, TF32 asserted off. Exits non-zero without CUDA.
   build   every kernel from abstracts_search_tpu_torch/csrc with nvcc
-          (sm_90a), all sources compiled in parallel.
+          (sm_90a), all sources compiled in parallel; fails unless the
+          top-k library's SASS (cuobjdump) holds tensor-core instructions.
   kernels each kernel against its plain PyTorch version on the card at
           the paths' shapes: exact top-k (index mismatches beyond ties
           within f32 accumulation error fail), fast top-k (beyond one
-          truncation step), ADC scans (bit for bit), with CUDA-event times.
+          truncation step), ADC scans (bit for bit), with CUDA-event times;
+          then the top-k's tile edges in both modes (odd d, k 300 at Q
+          256, Q 1/7/129/300, a ragged n_valid, repeated rows).
   flat    bench.py's configuration: 2,097,152 x 1024 bf16 unit vectors,
           128 queries, k 10, chunk 4096. The fast-mode top-k kernel
           against its plain version, QPS by CUDA events over chained
@@ -169,7 +172,10 @@ def compare_topk(q, x, k, got, ref, tol):
 def trunc_step(v, lane_bits: int):
     """One fast-mode truncation step at |v|: 2**lane_bits f32 ulps."""
     e = torch.frexp(v.abs().double().clamp_min(2.0**-126)).exponent
-    return torch.pow(2.0, (e - 24 + lane_bits).double())
+    # 2**(e - 24 + lane_bits) built from its bits: torch.pow on the card
+    # may land an ulp under the power of two, and one step would then
+    # count as more than one
+    return ((e.long() - 24 + lane_bits + 1023) << 52).view(torch.float64)
 
 
 def compare_fast(q, x, n_valid, got, ref, lane_bits):
@@ -212,6 +218,67 @@ def unit_rows(n: int, g, dtype=torch.bfloat16, block: int = 1 << 18):
         x[lo:hi] = torch.nn.functional.normalize(
             torch.randn((hi - lo, DIM), device="cuda", generator=g), dim=1).to(dtype)
     return x
+
+
+def topk_edges(x, g) -> list:
+    """The shapes the tensor-core tiling of the top-k puts at risk, in
+    both modes, each held against the plain version and timed: odd d
+    (scalar staging, zero-filled depth tail), k 300 at Q 256 over the
+    probe corpus ``x`` (32 queries per block), Q at tile edges, an n_valid
+    that is not a multiple of any tile, and a corpus of 64 distinct
+    small-integer rows repeated (every sum exact, so exact ties must go to
+    the lowest row and both modes must equal the plain version bit for
+    bit)."""
+
+    from abstracts_search_tpu_torch.ops import topk
+
+    chunk = FLAT_CHUNK
+    lane_bits = chunk.bit_length() - 1
+
+    def unit(shape):
+        return torch.nn.functional.normalize(
+            torch.randn(shape, device="cuda", generator=g), dim=1).to(torch.bfloat16)
+
+    ints = lambda shape: torch.randint(-3, 4, shape, device="cuda",  # noqa: E731
+                                       generator=g).to(torch.bfloat16)
+    x_rep = ints((64, DIM))[torch.randint(0, 64, (N_LISTS,), device="cuda", generator=g)]
+    cases = [("odd_d", unit((37, 100)), unit((8192, 100)), 8192, 10),
+             ("odd_d", unit((37, 1000)), unit((8192, 1000)), 8000, 10),
+             ("k300", unit((256, DIM)), x, N_LISTS, 300),
+             *[("q_edge", unit((qn, DIM)), x, N_LISTS, 16) for qn in (1, 7, 129, 300)],
+             ("n_valid", unit((128, DIM)), x, N_LISTS - 77, 16),
+             ("repeated_rows", ints((128, DIM)), x_rep, N_LISTS - 77, 16)]
+    out = []
+    for name, q, xs, n_valid, k in cases:
+        for mode in ("exact", "fast"):
+            run = lambda impl: topk.streaming_topk(  # noqa: E731
+                q, xs, n_valid, k, chunk=chunk, impl=impl, mode=mode)
+            got, ref = run("cuda"), run("torch")
+            torch.cuda.synchronize()
+            if mode == "exact":
+                err, bad, ties = compare_topk(q, xs, k, got, ref, 1e-5)
+                res = {"max_abs_err": err, "index_mismatches": bad, "near_ties": ties}
+            else:
+                res = compare_fast(q, xs, n_valid, got, ref, lane_bits)
+            if name == "repeated_rows":
+                res["bit_equal"] = bool(torch.equal(got[0], ref[0])
+                                        and torch.equal(got[1], ref[1]))
+            case = {"case": name, "mode": mode, "q": q.shape[0], "n": xs.shape[0],
+                    "n_valid": n_valid, "d": q.shape[1], "k": k, **res,
+                    "ms": cuda_ms(lambda: run("cuda"))}
+            out.append(case)
+            if (res["index_mismatches"] or not res.get("bit_equal", True)
+                    or (mode == "exact" and res["max_abs_err"] > 1e-4)):
+                raise AssertionError(f"topk kernel disagrees at an edge: {case}")
+    return out
+
+
+def sass_tensor_core_ops(lib_path: str) -> int:
+    """HMMA/HGMMA instructions in a built library's SASS (cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    return sum(1 for line in sass.splitlines() if "HMMA" in line or "HGMMA" in line)
 
 
 def check_kernels(seed: int):
@@ -280,6 +347,7 @@ def check_kernels(seed: int):
         out["topk_fast"].append(case)
         if case["index_mismatches"]:
             raise AssertionError(f"fast topk kernel disagrees: {case}")
+    out["topk_edges"] = topk_edges(x, g)
     del x, x_pos
 
     n_segs, n_slots, qn = 24_576, 8_192, 256
@@ -873,10 +941,14 @@ def main() -> int:
 
     if "build" in phases:
         t = time.perf_counter()
-        _build.build_all()
+        libs = _build.build_all()
+        # the bf16 top-k must run on tensor cores: count them in its SASS
+        hmma = sass_tensor_core_ops(libs["topk"]._name)
         emit({"phase": "build", "seconds": time.perf_counter() - t,
-              "nvcc_seconds": _build.build_seconds,
-              "libraries": sorted(_build.build_all())})
+              "nvcc_seconds": _build.build_seconds, "libraries": sorted(libs),
+              "topk_tensor_core_instructions": hmma})
+        if hmma == 0:
+            raise AssertionError("no HMMA/HGMMA instruction in the top-k library")
 
     rows, by_path = {}, {}
     if "kernels" in phases:

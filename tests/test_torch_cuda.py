@@ -61,6 +61,29 @@ def test_fast_topk_kernel_matches_plain_bit_for_bit(cuda, dtype, qn, n, n_valid,
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+@pytest.mark.parametrize("qn,n,n_valid,d,k", [
+    (37, 4096, 4096, 100, 10),        # odd d: scalar staging, zero-filled depth
+    (37, 4096, 4000, 1000, 10),       # a ragged last depth slice
+    (256, 65536, 65536, 64, 300),     # k 300 at Q 256: 32 queries per block
+    (1, 65536, 65536, 64, 16), (7, 8192, 8192, 64, 16),     # Q at tile edges
+    (129, 8192, 8192, 64, 16), (300, 8192, 8192, 64, 16),
+    (128, 8192, 8192 - 77, 64, 10),   # n_valid no multiple of any tile
+    (5, 4096, 0, 64, 10)])
+def test_topk_kernel_edges_bit_for_bit(cuda, mode, qn, n, n_valid, d, k):
+    """bf16 small integers and 64 distinct rows repeated through the
+    corpus: every sum is exact on the tensor cores as on the plain path,
+    so both modes must give its values and rows bit for bit, exact ties
+    going to the lowest row."""
+    g = torch.Generator(device=cuda).manual_seed(qn + d + k)
+    q = torch.randint(-3, 4, (qn, d), device=cuda, generator=g).to(torch.bfloat16)
+    x = torch.randint(-3, 4, (64, d), device=cuda, generator=g)[
+        torch.randint(0, 64, (n,), device=cuda, generator=g)].to(torch.bfloat16)
+    kv, ki = topk.streaming_topk(q, x, n_valid, k, chunk=512, impl="cuda", mode=mode)
+    pv, pi = topk.streaming_topk(q, x, n_valid, k, chunk=512, impl="torch", mode=mode)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
 @pytest.mark.parametrize("layout", ["t_packed", "t_bytes", "rows_packed", "rows_bytes"])
 @pytest.mark.parametrize("seg", [32, 256, 512])
 def test_adc_scan_kernel_matches_plain_bit_for_bit(cuda, layout, seg):

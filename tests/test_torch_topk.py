@@ -155,3 +155,77 @@ def test_cuda_impl_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         streaming_topk(torch.zeros((2, 8)), torch.zeros((64, 8)), 64, 5, chunk=64,
                        impl="cuda", mode="fast")
+
+
+# -- the CUDA kernel's launch plan (pure Python, so it is tested here) ---------
+
+from abstracts_search_tpu_torch.ops.topk import _BLOCK_SMEM, _TC, _plan  # noqa: E402
+
+# the largest k the f32-FMA design of the kernel took at its 8-query tile
+K_MAX_FMA = (_BLOCK_SMEM - 4 * (8 * 32 + 128 * 33 + 8 * 128)) // (8 * 8)
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qn,n_eff,k", [
+    (1, 65_536, 16), (7, 65_536, 2), (129, 65_536, 16), (256, 65_536, 16),
+    (300, 65_536, 300), (128, 2_097_152, 10), (5, 0, 10), (40, 1_500, 64),
+    (3, 7, 16), (256, 50_001, 300), (1, 65_536, K_MAX_FMA)])
+def test_plan_ranges_cover_the_corpus_once_tile_aligned(dtype, qn, n_eff, k):
+    p = _plan(qn, n_eff, k, dtype, H100_SMS)
+    assert p.range_rows % p.tn == 0 and p.range_rows >= p.tn
+    assert p.n_ranges * p.range_rows >= n_eff        # every valid row in a range
+    assert (p.n_ranges - 1) * p.range_rows < max(n_eff, 1)   # no empty range
+    assert p.smem <= _BLOCK_SMEM and 1 <= p.qb
+
+
+@pytest.mark.parametrize("qn", [1, 7, 9, 16, 17, 129, 300, 1000])
+@pytest.mark.parametrize("k", [1, 16, 300, 1024, K_MAX_FMA])
+def test_plan_takes_every_q_and_k_the_fma_design_took(qn, k):
+    for dtype in (torch.float32, torch.bfloat16):
+        p = _plan(qn, 65_536, k, dtype, H100_SMS)
+        assert p.smem <= _BLOCK_SMEM
+        assert -(-qn // p.qb) * p.qb >= qn
+
+
+def test_plan_raises_for_a_k_no_block_holds():
+    with pytest.raises(ValueError, match="shared memory"):
+        _plan(4, 65_536, K_MAX_FMA + 1, torch.float32, H100_SMS)
+    with pytest.raises(ValueError, match="shared memory"):
+        _plan(4, 65_536, 40_000, torch.bfloat16, H100_SMS)
+    with pytest.raises(TypeError):
+        _plan(4, 65_536, 10, torch.float16, H100_SMS)
+
+
+@pytest.mark.parametrize("qn", [1, 8, 37, 300])
+def test_plan_f32_takes_the_fma_scan_and_bf16_tensor_cores(qn):
+    assert not _plan(qn, 8_192, 40, torch.float32, H100_SMS).tensor_cores
+    assert _plan(qn, 8_192, 40, torch.bfloat16, H100_SMS).tensor_cores
+
+
+@pytest.mark.parametrize("qn,k", [(1, 16), (16, 16), (17, 10), (128, 10), (129, 16),
+                                  (256, 16)])
+def test_plan_reads_the_corpus_once_up_to_256_queries(qn, k):
+    """One query tile (grid y 1) for the probe's and flat search's shapes,
+    and the ranges fill at most one wave of the card."""
+    p = _plan(qn, 2_097_152, k, torch.bfloat16, H100_SMS)
+    assert p.qb == qn
+    assert p.n_ranges <= H100_SMS
+
+
+def test_plan_narrows_the_query_tile_for_large_k():
+    """k 300 at Q 256 does not fit 128 or 256 lists of 300: the
+    128-query tile takes it with 32 queries per block, still on tensor
+    cores; a k near the old limit goes down to a few queries per block."""
+    p = _plan(256, 65_536, 300, torch.bfloat16, H100_SMS)
+    assert p.tensor_cores and p.cfg == min(_TC) and p.qb == 32
+    assert _plan(256, 65_536, K_MAX_FMA, torch.bfloat16, H100_SMS).qb < 32
+
+
+@pytest.mark.parametrize("qn,k", [(1, 2), (1, 16), (7, 16), (16, 300), (100, 64)])
+def test_plan_gives_few_queries_the_128_query_tile(qn, k):
+    """A few queries, the single-query path among them, run on the
+    128-query tile with one block serving all of them; the tile's other
+    query rows are masked."""
+    p = _plan(qn, 65_536, k, torch.bfloat16, H100_SMS)
+    assert p.cfg == min(_TC) and p.qb == qn and p.tn == _TC[p.cfg][1]
