@@ -1,4 +1,6 @@
-// One row's ADC sum, shared by adc_topk.cu and adc_scan.cu.
+// One row's ADC sum for the unstaged scans of adc_scan.cu (kernels 4 and
+// 6); the staged kernels (adc_topk.cu, the row-major packed scan) add in
+// the same order from shared memory (adc_stage.cuh).
 //
 // lut is the query's [m, ksub] f32 table in shared memory. Packed
 // payloads (ksub 16, mb = m/2 bytes) hold subspace 2j in the low nibble of

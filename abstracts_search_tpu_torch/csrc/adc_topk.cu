@@ -11,74 +11,338 @@
 //
 // Why the TPU design does not carry over: the TPU avoided gathers with a
 // one-hot loop over the ksub code values. On Hopper a gather from shared
-// memory is cheap, so the query's LUT [M, ksub] f32 is staged in shared
-// memory (8 KiB at PQ128x4; restaged only when the query changes, since
-// slots are query-major) and each thread owns one row: for a fixed byte j
-// neighbouring rows are neighbouring addresses, so the code reads
-// coalesce. A packed lookup touches 16 consecutive words, so it is free
-// of bank conflicts. Each score is the sequential f32 sum over m = 0..M-1,
-// the same order the plain PyTorch version adds in, so the two agree bit
-// for bit (adc_sum.cuh, shared with adc_scan.cu). Selection is one pass:
-// every row counts the rows that beat it and, if that rank is below kp,
-// writes itself to slot[rank].
+// memory is cheap, so the query's LUT [M, ksub] f32 sits in shared memory
+// and each lookup is one shared load.
 //
-// What bounds it: the codes read, MB * SEG bytes per slot (16 KiB at
-// MB 64, SEG 256), over 3.35 TB/s.
+// What bounds it: the codes read (MB * SEG bytes per slot, 16 KiB at MB
+// 64, SEG 256) over 3.35 TB/s, and nearly as much the shared-memory pipe:
+// per slot, 256 rows x 128 lookups are 1,024 warp-wide shared loads, and
+// the codes take 128 wavefronts to read and 128 to write by the copies; at
+// one wavefront per clock per SM, ~0.25-0.28 ms for 51,642 slots on 132
+// SMs.
+//
+// Design:
+//   - staging (adc_stage.cuh): persistent blocks walk contiguous slot
+//     ranges; each consumer warp bulk-copies its slots' tiles, in chunks
+//     of about 4 KiB (a run of byte-rows j), into its own ring of D
+//     shared-memory stages, D - 1 chunks ahead of its reads, and a
+//     producer warp loads the query's LUT into one of two buffers when the
+//     query changes;
+//   - compute: a consumer warp owns a slot, and each lane R neighbouring
+//     rows (R = 8 at SEG 256), so byte j of its rows is one R-byte shared
+//     load, and its R sums are independent chains. Each sum still adds
+//     over m = 0..M-1 in order, as the plain PyTorch version does, so the
+//     two agree bit for bit; no -use_fast_math;
+//   - selection: kp rounds of a warp-wide max (one redux) over sortable
+//     u32 keys of the values; the lowest lane holding the max (the lowest
+//     row, since a lane's rows are contiguous) pops its lowest such row.
+//     O(kp R) per lane, no SEG^2 rank count. The rounds are branch-free and
+//     run between the next slot's groups of byte-rows, which hide their
+//     latency.
+// SEG above 512 (R = 16) takes several passes of 32 R rows; the partial
+// sums of a pass wait in a per-warp scratch row in device memory, and
+// selection there compares (value, row) as one 64-bit key.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "adc_sum.cuh"
+#include "adc_stage.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+using adc_stage::Ring;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
-__global__ void __launch_bounds__(THREADS) adc_topk_kernel(
+// u32 keys ordered as the floats (-0.0 must arrive as +0.0: the plain
+// version's stable sort takes them as equal)
+__device__ __forceinline__ uint32_t sortable(float v) {
+  const uint32_t b = __float_as_uint(v);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ __forceinline__ float unsortable(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+// byte j of rows [r0, r0 + R) from one byte-row p of the stage, packed
+// into words. VEC (seg % R == 0): one R-byte load, p R-aligned; a lane
+// whose rows start past seg (live false) loads a valid address and keeps
+// zeros, so the loads need no branch and can be hoisted. Else byte loads.
+template <int R, bool VEC>
+__device__ __forceinline__ void load_codes(const unsigned char* p, bool live, int r0, int seg,
+                                           uint32_t (&w)[(R + 3) / 4]) {
+  if constexpr (VEC) {
+    if constexpr (R == 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else if constexpr (R == 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x, w[1] = v.y;
+    } else if constexpr (R == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else if constexpr (R == 2) {
+      w[0] = *reinterpret_cast<const uint16_t*>(p);
+    } else {
+      w[0] = *p;
+    }
+#pragma unroll
+    for (int q = 0; q < (R + 3) / 4; ++q) w[q] = live ? w[q] : 0u;
+  } else {
+#pragma unroll
+    for (int q = 0; q < (R + 3) / 4; ++q) w[q] = 0;
+#pragma unroll
+    for (int b = 0; b < R; ++b)
+      if (r0 + b < seg) w[b >> 2] |= (uint32_t)p[b] << (8 * (b & 3));
+  }
+}
+
+// acc[b] += the lookups of byte-row j for row r0 + b (code words w), in m
+// order. Packed: each lookup is a byte_perm and a shared load
+// (adc_stage::Nibbles).
+template <int R, bool PACKED>
+__device__ __forceinline__ void add_codes(float (&acc)[R], const uint32_t (&w)[(R + 3) / 4],
+                                          int j, uint32_t lut_s, const float* lut, int ksub) {
+  if (PACKED) {
+    // subspaces 2j, 2j + 1: 16 floats each, at lut + 128 j and + 64
+    const uint32_t base = lut_s + 128 * j;
+#pragma unroll
+    for (int q = 0; q < (R + 3) / 4; ++q) {
+      const adc_stage::Nibbles nb(w[q], (j & 1) ? 0x80808080u : 0u,
+                                  (j & 1) ? 0xC0C0C0C0u : 0x40404040u);
+#pragma unroll
+      for (int bb = 0; bb < (R < 4 ? R : 4); ++bb) {
+        const int b = 4 * q + bb;
+        acc[b] = acc[b] + nb.lo_entry(base, bb);
+        acc[b] = acc[b] + nb.hi_entry(base, bb);
+      }
+    }
+  } else {
+    const float* lj = lut + (size_t)j * ksub;
+#pragma unroll
+    for (int q = 0; q < (R + 3) / 4; ++q)
+#pragma unroll
+      for (int bb = 0; bb < (R < 4 ? R : 4); ++bb) {
+        const int b = 4 * q + bb;
+        acc[b] = acc[b] + lj[__byte_perm(w[q], 0, 0x4440 + bb)];
+      }
+  }
+}
+
+// the largest of N keys, as a tree
+template <int N>
+__device__ __forceinline__ uint32_t max_of(const uint32_t (&k)[N]) {
+  uint32_t t[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) t[i] = k[i];
+#pragma unroll
+  for (int s = 1; s < N; s <<= 1)
+#pragma unroll
+    for (int i = 0; i + s < N; i += 2 * s) t[i] = max(t[i], t[i + s]);
+  return t[0];
+}
+
+// Top-kp of one slot whose sums sit in the lanes' registers (lane holds
+// rows r0 .. r0+R-1), one round at a time: a round takes the warp-wide max
+// of the lanes' best keys; the lowest lane holding it (the lowest row, as
+// a lane's rows are contiguous) pops its lowest row with that key. Popped
+// rows and rows past seg key as 0, below -inf. Each round is straight-line
+// code with no branch, so the next slot's sums, which call round() between
+// their groups of byte-rows, hide its latency.
+template <int R>
+struct Selector {
+  uint32_t key[R] = {};
+  uint32_t best = 0;
+  int t = 0, kp = 0, r0 = 0;   // rounds done, rounds due; no rounds due at first
+  float* ov = nullptr;
+  int* oi = nullptr;
+
+  __device__ __forceinline__ void start(const float (&acc)[R], int r0_, int seg, int vc,
+                                        int kp_, float* ov_, int* oi_) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = r0_ + i;
+      key[i] = r >= seg ? 0u : sortable(r < vc ? acc[i] + 0.0f : -INFINITY);
+    }
+    best = max_of(key);
+    t = 0, kp = kp_, r0 = r0_, ov = ov_, oi = oi_;
+  }
+  __device__ __forceinline__ void round(int lane) {
+    const bool on = t < kp;
+    const uint32_t m = __reduce_max_sync(FULL, best);
+    const bool win = on && lane == __ffs(__ballot_sync(FULL, best == m)) - 1;
+    uint32_t at = 0;   // this lane's rows holding the max; the lowest pops
+#pragma unroll
+    for (int i = 0; i < R; ++i) at |= (key[i] == m ? 1u : 0u) << i;
+    const int hit = __ffs(at) - 1;
+#pragma unroll
+    for (int i = 0; i < R; ++i) key[i] = win && i == hit ? 0u : key[i];
+    best = win ? max_of(key) : best;
+    const float v = unsortable(m);
+    if (win) {
+      ov[t] = v;
+      oi[t] = v == -INFINITY ? 0 : r0 + hit;
+    }
+    t += on;
+  }
+  __device__ __forceinline__ void drain(int lane) {
+    while (t < kp) round(lane);
+  }
+};
+
+// acc[b] += the lookups of byte-rows j0 .. j0+jn-1 for row r0 + b, in m
+// order; the code words of four byte-rows are loaded before their lookups,
+// and each group of four also runs one round of the previous slot's
+// selection.
+template <int R, bool PACKED, bool VEC>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[R], const unsigned char* stage,
+                                                const float* lut, int j0, int jn, int seg,
+                                                int ksub, int r0, Selector<R>& sel, int lane) {
+  const bool live = r0 < seg;
+  const unsigned char* col = stage + (live ? r0 : 0);
+  const uint32_t lut_s = (uint32_t)__cvta_generic_to_shared(lut);
+  int jj = 0;
+  for (; jj + 4 <= jn; jj += 4) {
+    uint32_t w[4][(R + 3) / 4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      load_codes<R, VEC>(col + (size_t)(jj + g) * seg, live, r0, seg, w[g]);
+    sel.round(lane);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) add_codes<R, PACKED>(acc, w[g], j0 + jj + g, lut_s, lut, ksub);
+  }
+  for (; jj < jn; ++jj) {
+    uint32_t w[(R + 3) / 4];
+    load_codes<R, VEC>(col + (size_t)jj * seg, live, r0, seg, w);
+    add_codes<R, PACKED>(acc, w, j0 + jj, lut_s, lut, ksub);
+  }
+}
+
+// a sum's chunk: the vector or the byte loads
+template <int R, bool PACKED>
+__device__ __forceinline__ void accumulate(float (&acc)[R], const unsigned char* stage,
+                                           const float* lut, int j0, int jn, int seg, int ksub,
+                                           int r0, bool vec, Selector<R>& sel, int lane) {
+  if (vec)
+    accumulate_rows<R, PACKED, true>(acc, stage, lut, j0, jn, seg, ksub, r0, sel, lane);
+  else
+    accumulate_rows<R, PACKED, false>(acc, stage, lut, j0, jn, seg, ksub, r0, sel, lane);
+}
+
+// (value, row) as one key: sortable value above ~row, so a larger key is a
+// larger value or, at equal values, a lower row. 0: popped (NaN).
+__device__ __forceinline__ unsigned long long key64(const float* sc, int r, int vc) {
+  const float v = sc[r];
+  if (isnan(v)) return 0ull;
+  return ((unsigned long long)sortable(r < vc ? v + 0.0f : -INFINITY) << 32) | (uint32_t)~r;
+}
+
+// Top-kp of one slot whose sums sit in the warp's scratch row sc[seg]; lane
+// l keeps the best of rows l, l+32, ... and rescans them when it wins.
+__device__ __forceinline__ void select_scratch(float* sc, int seg, int vc, int kp, float* ov,
+                                               int* oi, int lane) {
+  __syncwarp();
+  unsigned long long best = 0;
+  for (int r = lane; r < seg; r += 32) best = max(best, key64(sc, r, vc));
+  for (int t = 0; t < kp; ++t) {
+    unsigned long long m = best;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(FULL, m, o));
+    if (best == m) {
+      const int r = (int)~(uint32_t)m;
+      const float v = unsortable((uint32_t)(m >> 32));
+      ov[t] = v;
+      oi[t] = v == -INFINITY ? 0 : r;
+      sc[r] = __int_as_float(0x7FFFFFFF);
+      best = 0;
+      for (int rr = lane; rr < seg; rr += 32) best = max(best, key64(sc, rr, vc));
+    }
+  }
+  __syncwarp();
+}
+
+template <int R, bool PACKED>
+__global__ void __launch_bounds__(adc_stage::MAX_THREADS, 1) adc_topk_kernel(
     const uint8_t* __restrict__ codes, const float* __restrict__ luts,
     const int* __restrict__ seg_ids, const int* __restrict__ q_ids,
-    const int* __restrict__ valid_cnt, int n_slots, int mb, int seg, int m, int ksub,
-    int packed, int kp, int slots_per_block, float* __restrict__ out_v,
+    const int* __restrict__ valid_cnt, int n_slots, int mb, int seg, int m, int ksub, int kp,
+    int W, int D, int jc, int nl, float* __restrict__ scratch, float* __restrict__ out_v,
     int* __restrict__ out_i) {
-  extern __shared__ float sm[];
-  float* lut = sm;              // [m * ksub]
-  float* sc = lut + m * ksub;   // [seg]
-  const int t = threadIdx.x;
-  const int s_begin = blockIdx.x * slots_per_block;
-  const int s_end = min(n_slots, s_begin + slots_per_block);
-  int cur_q = -1;
-  for (int s = s_begin; s < s_end; ++s) {
-    const int qid = q_ids[s];
-    __syncthreads();  // the previous slot's readers of lut/sc are done
-    if (qid != cur_q) {
-      const float* src = luts + (size_t)qid * m * ksub;
-      for (int e = t; e < m * ksub; e += THREADS) lut[e] = src[e];
-      cur_q = qid;
-      __syncthreads();
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int chunk_bytes = jc * seg, lut_bytes = 4 * m * ksub;
+  const Ring g(smem, W, D, chunk_bytes, lut_bytes, nl);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s0 = (int)((long long)n_slots * blockIdx.x / gridDim.x);
+  const int n = (int)((long long)n_slots * (blockIdx.x + 1) / gridDim.x) - s0;
+  const int nch = (mb + jc - 1) / jc;
+  if (threadIdx.x == 0) g.init();
+  __syncthreads();
+  if (warp == W) {
+    adc_stage::post_luts(g, luts, q_ids, s0, n, lut_bytes, lane);
+    return;
+  }
+  adc_stage::Feed f(g, codes, seg_ids, (size_t)mb * seg, chunk_bytes, nch, warp, lane, s0, n);
+  const int passes = (seg + 32 * R - 1) / (32 * R);
+  const bool vec = seg % R == 0;
+  float* sc = passes > 1 ? scratch + ((size_t)blockIdx.x * W + warp) * seg : nullptr;
+  Selector<R> sel;        // the previous slot's selection, in rounds
+  adc_stage::Phases ph;   // 0 chunk waits, 1 LUT waits, 2 sums, 3 selection
+  ph.start();
+  int k = 0;   // this warp's slots so far
+  for (int i = warp; i < n; i += W, ++k) {
+    const int s = s0 + i;
+    float acc[R];
+#pragma unroll
+    for (int b = 0; b < R; ++b) acc[b] = 0.f;
+    const float* lut = f.begin_slot(k);
+    ph.mark(1);
+    for (int c = 0; c < nch; ++c) {
+      const unsigned char* stage = f.wait_chunk();
+      ph.mark(0);
+      const int j0 = c * jc, jn = min(jc, mb - j0);
+      if (passes == 1) {
+        accumulate<R, PACKED>(acc, stage, lut, j0, jn, seg, ksub, lane * R, vec, sel, lane);
+      } else {
+        for (int p = 0; p < passes; ++p) {
+          const int r0 = p * 32 * R + lane * R;
+          float a[R];
+#pragma unroll
+          for (int b = 0; b < R; ++b) a[b] = (c > 0 && r0 + b < seg) ? sc[r0 + b] : 0.f;
+          accumulate<R, PACKED>(a, stage, lut, j0, jn, seg, ksub, r0, vec, sel, lane);
+#pragma unroll
+          for (int b = 0; b < R; ++b)
+            if (r0 + b < seg) sc[r0 + b] = a[b];
+        }
+      }
+      f.next();
+      ph.mark(2);
     }
-    const uint8_t* tile = codes + (size_t)seg_ids[s] * mb * seg;
+    f.end_slot(k);
+    float* ov = out_v + (size_t)s * kp;
+    int* oi = out_i + (size_t)s * kp;
     const int vc = valid_cnt[s];
-    for (int r = t; r < seg; r += THREADS) {
-      const float acc = packed ? adc_sum_transposed<true>(tile, lut, r, mb, seg, ksub)
-                               : adc_sum_transposed<false>(tile, lut, r, mb, seg, ksub);
-      sc[r] = r < vc ? acc : -INFINITY;
-    }
-    __syncthreads();
-    // rank selection under (value desc, row asc): ranks are a permutation
-    // of 0..seg-1, so exactly kp rows write
-    for (int r = t; r < seg; r += THREADS) {
-      const float v = sc[r];
-      int rank = 0;
-      for (int o = 0; o < seg && rank < kp; ++o) {
-        const float w = sc[o];
-        rank += (w > v) || (w == v && o < r);
-      }
-      if (rank < kp) {
-        out_v[(size_t)s * kp + rank] = v;
-        out_i[(size_t)s * kp + rank] = v == -INFINITY ? 0 : r;
-      }
-    }
+    sel.drain(lane);   // the rounds the sums left over
+    if (passes == 1)
+      sel.start(acc, lane * R, seg, vc, kp, ov, oi);
+    else
+      select_scratch(sc, seg, vc, kp, ov, oi, lane);
+    ph.mark(3);
+  }
+  sel.drain(lane);
+  ph.flush(lane);
+}
+
+using Kernel = void (*)(const uint8_t*, const float*, const int*, const int*, const int*, int,
+                        int, int, int, int, int, int, int, int, int, float*, float*, int*);
+
+template <bool PACKED>
+Kernel pick(int rows) {
+  switch (rows) {
+    case 1: return adc_topk_kernel<1, PACKED>;
+    case 2: return adc_topk_kernel<2, PACKED>;
+    case 4: return adc_topk_kernel<4, PACKED>;
+    case 8: return adc_topk_kernel<8, PACKED>;
+    case 16: return adc_topk_kernel<16, PACKED>;
+    default: return nullptr;
   }
 }
 
@@ -86,25 +350,46 @@ __global__ void __launch_bounds__(THREADS) adc_topk_kernel(
 
 extern "C" {
 
+// Shared-memory bytes of a launch plan (ops/adc.py checks its own count
+// against this one).
+long long adc_topk_smem_bytes(int W, int D, int chunk_bytes, int lut_bytes, int nl) {
+  return adc_stage::smem_bytes(W, D, chunk_bytes, lut_bytes, nl);
+}
+
 // codes [n_segs, mb, seg] u8, luts [Q, m, ksub] f32, seg_ids/q_ids/valid_cnt
-// [n_slots] i32 -> out_v [n_slots, kp] f32, out_i [n_slots, kp] i32.
-// Returns cudaGetLastError().
+// [n_slots] i32 -> out_v [n_slots, kp] f32, out_i [n_slots, kp] i32. The
+// plan (ops/adc.py::_adc_plan): rows per lane, W consumer warps, D stages
+// per warp, jc byte-rows per chunk, nl LUT buffers, grid blocks; scratch
+// [grid * W * seg] f32 where seg > 32 * rows. Returns cudaGetLastError().
 int adc_topk_launch(const void* codes, const void* luts, const void* seg_ids,
-                    const void* q_ids, const void* valid_cnt, int n_slots, int mb,
-                    int seg, int m, int ksub, int packed, int kp, int slots_per_block,
-                    void* out_v, void* out_i, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)m * ksub + seg);
-  cudaError_t e = cudaFuncSetAttribute(
-      adc_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                    const void* q_ids, const void* valid_cnt, int n_slots, int mb, int seg,
+                    int m, int ksub, int packed, int kp, int rows, int W, int D, int jc, int nl,
+                    int grid, void* scratch, void* out_v, void* out_i, void* stream) {
+  const Kernel k = packed ? pick<true>(rows) : pick<false>(rows);
+  if (k == nullptr || W < 1 || W > adc_stage::MAX_WARPS || D < 1 || jc < 1 || nl < 1 ||
+      nl > 2)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = adc_stage::smem_bytes(W, D, jc * seg, 4 * m * ksub, nl);
+  cudaError_t e =
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   if (n_slots == 0) return 0;
-  const int grid = (n_slots + slots_per_block - 1) / slots_per_block;
-  adc_topk_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  k<<<grid, 32 * (W + 1), (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), static_cast<const float*>(luts),
       static_cast<const int*>(seg_ids), static_cast<const int*>(q_ids),
-      static_cast<const int*>(valid_cnt), n_slots, mb, seg, m, ksub, packed, kp,
-      slots_per_block, static_cast<float*>(out_v), static_cast<int*>(out_i));
+      static_cast<const int*>(valid_cnt), n_slots, mb, seg, m, ksub, kp, W, D, jc, nl,
+      static_cast<float*>(scratch), static_cast<float*>(out_v), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }
+
+#ifdef ADC_PHASES
+// the phase counters summed since the last call, then zeroed
+int adc_topk_phases(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, adc_stage::adc_phase_cycles, 64);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[8] = {};
+  return (int)cudaMemcpyToSymbol(adc_stage::adc_phase_cycles, zero, 64);
+}
+#endif
 
 }  // extern "C"

@@ -24,7 +24,10 @@ in its low nibble and 2j+1 in its high nibble) or unpacked (ksub up to
 Each op has an ``impl`` switch:
 
 - ``"cuda"``: the hand-written kernels, ``csrc/adc_topk.cu`` and
-  ``csrc/adc_scan.cu`` (one template per layout and packing);
+  ``csrc/adc_scan.cu``. The fused scan and the row-major packed scan
+  stage each slot's tile through a ring of shared-memory stages filled
+  by bulk async copies (``csrc/adc_stage.cuh``), with the launch plan
+  from ``_adc_plan``; the other raw scans read device memory directly;
 - ``"torch"``: the plain versions ``adc_topk_torch`` (twin of the JAX
   package's ``adc_topk_xla``) and ``adc_scan_torch`` (twin of
   ``adc_scan_xla``). They add the M lookups in the kernels' order, so
@@ -37,6 +40,8 @@ a CPU tensor. The LUTs are passed as [Q, M, ksub], with no re-layout.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -53,12 +58,108 @@ _SMEM_LIMIT = 232_448
 _BLOCKS_PER_SM = 16
 _SLOT_CHUNK = 8192
 
+# the staged kernels (csrc/adc_stage.cuh): at most 16 consumer warps per
+# block, chunks of about 4 KiB, and 3, else 2, else 1 stages per warp
+_STAGE_MAX_WARPS = 16
+_CHUNK_TARGET = 4096
+_DEPTHS = (3, 2, 1)
+# LUTs from this size on get one buffer, not two
+_ONE_LUT_BYTES = 64 * 1024
+# LUT mailbox entries per warp (adc_stage::MAIL)
+_MAIL = 4
+
 
 def _is_packed(codes3, luts, transposed: bool) -> bool:
     """Nibble-packed payloads (ksub 16, MB = M/2), told from unpacked
     4-bit payloads by shape; MB is axis 1 transposed, axis 2 row-major."""
     mb_axis = 1 if transposed else 2
     return luts.shape[2] == 16 and codes3.shape[mb_axis] * 2 == luts.shape[1]
+
+
+# -- launch plans of the staged kernels ------------------------------------------------
+
+
+class AdcPlan(NamedTuple):
+    rows: int          # "topk": rows per lane (a power of two <= 16); "rows": 0
+    passes: int        # "topk": passes of 32 * rows over a slot's rows (scratch if > 1)
+    warps: int         # consumer warps per block (one producer warp more)
+    depth: int         # ring stages per consumer warp
+    chunk: int         # per chunk: byte-rows j ("topk") or rows ("rows")
+    chunk_bytes: int
+    n_luts: int        # LUT buffers
+    smem: int          # shared memory bytes per block
+    grid: int          # persistent blocks, one per SM
+
+
+def _align(b: int, to: int) -> int:
+    return -(-b // to) * to
+
+
+def _stage_smem(warps: int, depth: int, chunk_bytes: int, lut_bytes: int, n_luts: int) -> int:
+    """Mirror of ``adc_stage::smem_bytes`` in csrc/adc_stage.cuh: 256
+    bytes to align the start, the LUT buffers (256-byte aligned), the
+    stages, 8-byte barriers per stage and LUT, and per warp two 4-byte
+    counters and ``_MAIL`` mailbox words."""
+    return (256 + n_luts * _align(lut_bytes, 256) + warps * depth * _align(chunk_bytes, 16)
+            + 8 * (warps * depth + n_luts) + 4 * warps * (2 + _MAIL))
+
+
+def _adc_plan(kind: str, mb: int, seg: int, m: int, ksub: int, n_slots: int,
+              sms: int) -> AdcPlan:
+    """The launch plan of a staged kernel: ``kind`` "topk" (the fused
+    scan, transposed [MB, SEG] tiles chunked by byte-rows) or "rows" (the
+    row-major packed scan, [SEG, MB] tiles chunked by rows).
+
+    A chunk is about ``_CHUNK_TARGET`` bytes; the ring takes the deepest
+    of ``_DEPTHS`` that fits with at least one warp, and then as many
+    warps as fit. The chunk halves while not even one warp and one stage
+    fit. LUTs below ``_ONE_LUT_BYTES`` get two buffers. One block per SM
+    (``sms``), at most one per slot. Raises ValueError where one byte-row
+    (or row) and the LUT do not fit shared memory."""
+    lut_bytes = 4 * m * ksub
+    n_luts = 2 if lut_bytes < _ONE_LUT_BYTES else 1
+    if kind == "topk":
+        rows = min(16, 1 << max(0, (-(-seg // 32) - 1).bit_length()))
+        passes = -(-seg // (32 * rows))
+        unit, units = seg, mb          # bytes per byte-row, byte-rows per tile
+    elif kind == "rows":
+        rows, passes = 0, 1
+        unit, units = mb, seg          # bytes per row, rows per tile
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    chunk = max(1, min(units, _CHUNK_TARGET // unit))
+    while True:
+        for depth in _DEPTHS:
+            fits = [w for w in range(1, _STAGE_MAX_WARPS + 1)
+                    if _stage_smem(w, depth, chunk * unit, lut_bytes, n_luts) <= _SMEM_LIMIT]
+            if fits:
+                warps = max(fits)
+                return AdcPlan(rows, passes, warps, depth, chunk, chunk * unit, n_luts,
+                               _stage_smem(warps, depth, chunk * unit, lut_bytes, n_luts),
+                               max(1, min(n_slots, sms)))
+        if chunk == 1:
+            raise ValueError(f"a [{m}, {ksub}] LUT and {unit}-byte chunks do not fit "
+                             f"shared memory")
+        chunk //= 2
+
+
+@functools.lru_cache(maxsize=64)
+def _check_smem(kind: str, warps: int, depth: int, chunk_bytes: int, lut_bytes: int,
+                n_luts: int, smem: int) -> None:
+    """The plan's shared-memory count against the kernel's own, once."""
+    lib, fn = ((_lib(), "adc_topk_smem_bytes") if kind == "topk" else
+               (_scan_lib(), "adc_rows_smem_bytes"))
+    if getattr(lib, fn)(warps, depth, chunk_bytes, lut_bytes, n_luts) != smem:
+        raise RuntimeError(f"the ADC plan and csrc/adc_stage.cuh disagree on shared memory "
+                           f"({kind})")
+
+
+def _launch_plan(kind: str, codes3, mb: int, seg: int, m: int, ksub: int,
+                 n_slots: int) -> AdcPlan:
+    sms = torch.cuda.get_device_properties(codes3.device).multi_processor_count
+    p = _adc_plan(kind, mb, seg, m, ksub, n_slots, sms)
+    _check_smem(kind, p.warps, p.depth, p.chunk_bytes, 4 * m * ksub, p.n_luts, p.smem)
+    return p
 
 
 def _check_payload(codes3, luts, transposed: bool) -> bool:
@@ -144,9 +245,10 @@ def _lib():
     lib = _build.library("adc_topk")
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.adc_topk_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i,
-                                        vp, vp, vp]
+        lib.adc_topk_launch.argtypes = [vp, vp, vp, vp, vp] + [i] * 13 + [vp, vp, vp, vp]
         lib.adc_topk_launch.restype = i
+        lib.adc_topk_smem_bytes.argtypes = [i] * 5
+        lib.adc_topk_smem_bytes.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -157,20 +259,22 @@ def adc_topk_cuda(codes3, luts, seg_ids, q_ids, valid_cnt, kp: int):
     _check_cuda(codes3, luts, seg_ids=seg_ids, q_ids=q_ids, valid_cnt=valid_cnt)
     _, mb, seg = codes3.shape
     _, m, ksub = luts.shape
-    if 4 * (m * ksub + seg) > _SMEM_LIMIT:
-        raise ValueError(f"a [{m}, {ksub}] LUT does not fit shared memory")
     n_slots = seg_ids.shape[0]
-    out_v = torch.empty((n_slots, kp), dtype=torch.float32, device=codes3.device)
-    out_i = torch.empty((n_slots, kp), dtype=torch.int32, device=codes3.device)
+    p = _launch_plan("topk", codes3, mb, seg, m, ksub, n_slots)
+    dev = codes3.device
+    out_v = torch.empty((n_slots, kp), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_slots, kp), dtype=torch.int32, device=dev)
     if n_slots == 0:
         return out_v, out_i
-    sms = torch.cuda.get_device_properties(codes3.device).multi_processor_count
-    spb = max(1, n_slots // (sms * _BLOCKS_PER_SM))
+    # partial sums of the slots whose rows take several passes
+    scratch = (torch.empty((p.grid * p.warps * seg,), dtype=torch.float32, device=dev)
+               if p.passes > 1 else None)
     err = _lib().adc_topk_launch(
         codes3.data_ptr(), luts.data_ptr(), seg_ids.data_ptr(), q_ids.data_ptr(),
-        valid_cnt.data_ptr(), n_slots, mb, seg, m, ksub, int(packed), kp, spb,
-        out_v.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(codes3.device).cuda_stream)
+        valid_cnt.data_ptr(), n_slots, mb, seg, m, ksub, int(packed), kp, p.rows, p.warps,
+        p.depth, p.chunk, p.n_luts, p.grid,
+        scratch.data_ptr() if scratch is not None else None,
+        out_v.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "adc_topk")
     launches += 1
     return out_v, out_i
@@ -219,6 +323,10 @@ def _scan_lib():
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.adc_scan_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp, vp]
         lib.adc_scan_launch.restype = i
+        lib.adc_rows_packed_launch.argtypes = [vp, vp, vp, vp] + [i] * 9 + [vp, vp]
+        lib.adc_rows_packed_launch.restype = i
+        lib.adc_rows_smem_bytes.argtypes = [i] * 5
+        lib.adc_rows_smem_bytes.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -229,26 +337,37 @@ def adc_scan_cuda(codes3, luts, seg_ids, q_ids, *, transposed: bool):
     mb, seg = (codes3.shape[1], codes3.shape[2]) if transposed else \
         (codes3.shape[2], codes3.shape[1])
     _, m, ksub = luts.shape
+    n_slots = seg_ids.shape[0]
+    dev = codes3.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if not transposed and packed:          # the staged scan (kernel 5)
+        p = _launch_plan("rows", codes3, mb, seg, m, ksub, n_slots)
+        out = torch.empty((n_slots, seg), dtype=torch.float32, device=dev)
+        if n_slots == 0:
+            return out
+        err = _scan_lib().adc_rows_packed_launch(
+            codes3.data_ptr(), luts.data_ptr(), seg_ids.data_ptr(), q_ids.data_ptr(),
+            n_slots, mb, seg, m, p.warps, p.depth, p.chunk, p.n_luts, p.grid,
+            out.data_ptr(), stream)
+        _build.check(err, "adc_scan")
+        scan_launches["adc_kernel_packed4"] += 1
+        return out
     smem = 4 * m * ksub
     if smem > _SMEM_LIMIT:
         raise ValueError(f"a [{m}, {ksub}] LUT does not fit shared memory")
-    n_slots = seg_ids.shape[0]
-    out = torch.empty((n_slots, seg), dtype=torch.float32, device=codes3.device)
+    out = torch.empty((n_slots, seg), dtype=torch.float32, device=dev)
     if n_slots == 0:
         return out
-    sms = torch.cuda.get_device_properties(codes3.device).multi_processor_count
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # the LUT is restaged per query a block meets: fewer, longer blocks
     # where a large LUT limits the blocks an SM holds anyway
     per_sm = max(1, min(_BLOCKS_PER_SM, _SMEM_LIMIT // max(smem, 1)))
     spb = max(1, n_slots // (sms * per_sm))
     err = _scan_lib().adc_scan_launch(
         codes3.data_ptr(), luts.data_ptr(), seg_ids.data_ptr(), q_ids.data_ptr(),
-        n_slots, mb, seg, m, ksub, int(packed), int(transposed), spb, out.data_ptr(),
-        torch.cuda.current_stream(codes3.device).cuda_stream)
+        n_slots, mb, seg, m, ksub, int(packed), int(transposed), spb, out.data_ptr(), stream)
     _build.check(err, "adc_scan")
-    name = ("adc_kernel_t" if transposed else
-            "adc_kernel_packed4" if packed else "adc_kernel")
-    scan_launches[name] += 1
+    scan_launches["adc_kernel_t" if transposed else "adc_kernel"] += 1
     return out
 
 

@@ -9,13 +9,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
           versions, TF32 asserted off. Exits non-zero without CUDA.
   build   every kernel from abstracts_search_tpu_torch/csrc with nvcc
           (sm_90a), all sources compiled in parallel; fails unless the
-          top-k library's SASS (cuobjdump) holds tensor-core instructions.
+          top-k library's SASS (cuobjdump) holds tensor-core instructions
+          and both ADC libraries' SASS hold bulk async copies (UBLKCP).
   kernels each kernel against its plain PyTorch version on the card at
           the paths' shapes: exact top-k (index mismatches beyond ties
           within f32 accumulation error fail), fast top-k (beyond one
           truncation step), ADC scans (bit for bit), with CUDA-event times;
           then the top-k's tile edges in both modes (odd d, k 300 at Q
-          256, Q 1/7/129/300, a ragged n_valid, repeated rows).
+          256, Q 1/7/129/300, a ragged n_valid, repeated rows), and the
+          staged ADC kernels (3 and 5) on tie-heavy LUTs and on q_ids
+          query-major, alternating and shuffled (bit for bit).
   flat    bench.py's configuration: 2,097,152 x 1024 bf16 unit vectors,
           128 queries, k 10, chunk 4096. The fast-mode top-k kernel
           against its plain version, QPS by CUDA events over chained
@@ -273,12 +276,55 @@ def topk_edges(x, g) -> list:
     return out
 
 
-def sass_tensor_core_ops(lib_path: str) -> int:
-    """HMMA/HGMMA instructions in a built library's SASS (cuobjdump)."""
+def sass_count(lib_path: str, *mnemonics: str) -> int:
+    """Lines of a built library's SASS (cuobjdump) holding any of the
+    mnemonics."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
-    return sum(1 for line in sass.splitlines() if "HMMA" in line or "HGMMA" in line)
+    return sum(1 for line in sass.splitlines() if any(m in line for m in mnemonics))
+
+
+def adc_edges(g) -> list:
+    """The staged ADC kernels (3: adc_topk, 5: the row-major packed scan)
+    against their plain versions, bit for bit, at PQ128x4 over 8,192 slots
+    of 256 queries: small-integer LUTs (many rows tie, and row order
+    decides) and Gaussian ones, each with q_ids query-major (the search
+    path), alternating every slot (the index's load check) and shuffled
+    (a LUT reload at almost every slot). Each timed."""
+
+    from abstracts_search_tpu_torch.ops import adc
+
+    n_segs, n_slots, qn, mb, m = 24_576, 8_192, 256, 64, 128
+    codes = torch.randint(0, 256, (n_segs, mb, SEG), dtype=torch.uint8, device="cuda",
+                          generator=g)
+    rows = codes.transpose(1, 2).contiguous()
+    seg_ids = torch.randint(0, n_segs, (n_slots,), dtype=torch.int32, device="cuda",
+                            generator=g)
+    major = (torch.arange(n_slots, device="cuda") * qn // n_slots).int()
+    orders = {"major": major, "alternating": (torch.arange(n_slots, device="cuda") % 2).int(),
+              "shuffled": major[torch.randperm(n_slots, device="cuda", generator=g)]}
+    valid = torch.randint(0, SEG + 1, (n_slots,), dtype=torch.int32, device="cuda",
+                          generator=g)
+    out = []
+    for values in ("ties", "randn"):
+        luts = (torch.randint(-2, 3, (qn, m, 16), device="cuda", generator=g).float()
+                if values == "ties" else torch.randn((qn, m, 16), device="cuda", generator=g))
+        for order, q_ids in orders.items():
+            for kernel, run in (
+                    ("adc_topk", lambda impl: adc.adc_topk(  # noqa: E731
+                        codes, luts, seg_ids, q_ids, valid, 10, impl=impl)),
+                    ("adc_kernel_packed4", lambda impl: (adc.adc_scan(  # noqa: E731
+                        rows, luts, seg_ids, q_ids, transposed=False, impl=impl),))):
+                got, ref = run("cuda"), run("torch")
+                torch.cuda.synchronize()
+                case = {"kernel": kernel, "luts": values, "q_ids": order, "slots": n_slots,
+                        "bit_equal": all(torch.equal(a, b) for a, b in zip(got, ref)),
+                        "ms": cuda_ms(lambda: run("cuda"))}
+                out.append(case)
+                if not case["bit_equal"]:
+                    raise AssertionError(f"a staged ADC kernel disagrees: {case}")
+    return out
 
 
 def check_kernels(seed: int):
@@ -371,6 +417,7 @@ def check_kernels(seed: int):
             fin = torch.isfinite(pv)
             case = {"slots": n_slots, "mb": mb, "m": m, "ksub": ksub, "seg": SEG,
                     "kp": kp, "zero_valid_slots": int((valid == 0).sum()),
+                    "bit_equal": bool(torch.equal(kv, pv) and torch.equal(ki, pi)),
                     "max_abs_err": float((kv[fin] - pv[fin]).abs().max()),
                     "index_mismatches": int((ki != pi).sum()),
                     "inf_mismatches": int((torch.isfinite(kv) != fin).sum()),
@@ -378,7 +425,7 @@ def check_kernels(seed: int):
                     "plain_ms": cuda_ms(lambda: adc.adc_topk(*args, impl="torch"),
                                         reps=3, warmup=1)}
             out["adc_topk"].append(case)
-            if case["index_mismatches"] or case["inf_mismatches"] or case["max_abs_err"]:
+            if not case["bit_equal"]:
                 raise AssertionError(f"adc_topk kernel disagrees: {case}")
         # raw scans over both layouts of the same codes (kernels 4, 5, 6)
         for transposed in (True, False):
@@ -407,6 +454,7 @@ def check_kernels(seed: int):
         del codes
     torch.cuda.synchronize()
     k4["launches"] = counts()["adc_kernel_t"]
+    out["adc_edges"] = adc_edges(g)
     return out, k4
 
 
@@ -862,7 +910,7 @@ def probe_and_scan_rows(idx, q, nprobe, k):
     kv, ki = adc.adc_topk(*args, impl="cuda")
     pv, pi = adc.adc_topk(*args, impl="torch")
     fin = torch.isfinite(pv)
-    if not (torch.equal(ki, pi) and torch.equal(torch.isfinite(kv), fin)):
+    if not (torch.equal(ki, pi) and torch.equal(kv, pv)):
         raise AssertionError("adc_topk disagrees at the main path's inputs")
     n_slots = seg_ids.numel()
     mb = idx._codes.shape[1]
@@ -942,13 +990,17 @@ def main() -> int:
     if "build" in phases:
         t = time.perf_counter()
         libs = _build.build_all()
-        # the bf16 top-k must run on tensor cores: count them in its SASS
-        hmma = sass_tensor_core_ops(libs["topk"]._name)
+        # the bf16 top-k must run on tensor cores, and the staged ADC
+        # kernels must stage by bulk async copies: count both in the SASS
+        hmma = sass_count(libs["topk"]._name, "HMMA", "HGMMA")
+        bulk = {name: sass_count(libs[name]._name, "UBLKCP") for name in ("adc_topk", "adc_scan")}
         emit({"phase": "build", "seconds": time.perf_counter() - t,
               "nvcc_seconds": _build.build_seconds, "libraries": sorted(libs),
-              "topk_tensor_core_instructions": hmma})
+              "topk_tensor_core_instructions": hmma, "bulk_copy_instructions": bulk})
         if hmma == 0:
             raise AssertionError("no HMMA/HGMMA instruction in the top-k library")
+        if not all(bulk.values()):
+            raise AssertionError(f"no bulk-copy (UBLKCP) instruction in an ADC library: {bulk}")
 
     rows, by_path = {}, {}
     if "kernels" in phases:

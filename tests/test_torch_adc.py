@@ -152,3 +152,67 @@ def test_scan_validates_args():
         adc_scan(*args, transposed=True, impl="cuda")
     with pytest.raises(ValueError):
         adc_scan(*args, transposed=True, impl="xla")
+
+
+# -- launch plans of the staged kernels (pure Python, no card) ------------------------
+
+from abstracts_search_tpu_torch.ops.adc import _SMEM_LIMIT, _adc_plan, _stage_smem  # noqa: E402
+
+H100_SMS = 132
+
+
+def _old_accepts(kind, m, ksub, seg):
+    """The shared-memory check of the unstaged wrappers this plan replaced."""
+    lut_words = m * ksub
+    return 4 * (lut_words + (seg if kind == "topk" else 0)) <= _SMEM_LIMIT
+
+
+@pytest.mark.parametrize("seg", [1, 7, 32, 100, 256, 512, 1000, 4096])
+@pytest.mark.parametrize("m,ksub", [(8, 16), (16, 16), (64, 16), (128, 16), (3, 256),
+                                    (64, 256), (128, 256), (200, 256), (256, 256)])
+def test_adc_plan_accepts_what_the_old_wrapper_did(m, ksub, seg):
+    mb = m // 2 if ksub == 16 and m % 2 == 0 else m
+    kinds = ["topk"] + (["rows"] if ksub == 16 and mb * 2 == m else [])
+    for kind in kinds:
+        if not _old_accepts(kind, m, ksub, seg):
+            with pytest.raises(ValueError):
+                _adc_plan(kind, mb, seg, m, ksub, 1000, H100_SMS)
+            continue
+        p = _adc_plan(kind, mb, seg, m, ksub, 1000, H100_SMS)
+        assert p.smem == _stage_smem(p.warps, p.depth, p.chunk_bytes, 4 * m * ksub, p.n_luts)
+        assert p.smem <= _SMEM_LIMIT
+        assert 1 <= p.warps <= 16 and 1 <= p.depth <= 3 and p.n_luts in (1, 2)
+        assert p.n_luts == (2 if 4 * m * ksub < 64 * 1024 else 1)
+        unit, units = (seg, mb) if kind == "topk" else (mb, seg)
+        assert 1 <= p.chunk <= units and p.chunk_bytes == p.chunk * unit
+        if kind == "topk":      # a power of two of rows per lane; passes cover SEG
+            assert p.rows in (1, 2, 4, 8, 16)
+            assert 32 * p.rows * p.passes >= seg > 32 * p.rows * (p.passes - 1)
+            assert p.passes == 1 or p.rows == 16
+        assert p.grid == min(1000, H100_SMS)
+
+
+@pytest.mark.parametrize("kind", ["topk", "rows"])
+def test_adc_plan_keeps_chunks_in_flight_at_the_production_shape(kind):
+    """MB 64, SEG 256, PQ128x4: 4 KiB chunks, 3 stages per warp (2 chunks
+    in flight ahead of each of 16 warps), two 8 KiB LUT buffers."""
+    p = _adc_plan(kind, 64, 256, 128, 16, 51_642, H100_SMS)
+    assert p.depth - 1 >= 2 and p.warps == 16 and p.n_luts == 2
+    assert p.chunk_bytes == 4096 and p.grid == H100_SMS
+    assert p.rows == (8 if kind == "topk" else 0) and p.passes == 1
+    assert p.smem == 256 + 2 * 8192 + 16 * 3 * 4096 + 8 * (48 + 2) + 4 * 16 * 6
+
+
+@pytest.mark.parametrize("m", [64, 128])
+def test_adc_plan_gives_a_large_lut_one_buffer(m):
+    """64 and 128 KiB LUTs (ksub 256): one buffer, and the ring in what is
+    left."""
+    p = _adc_plan("topk", m, 256, m, 256, 51_642, H100_SMS)
+    assert p.n_luts == 1 and p.depth == 3 and p.warps >= 8 and p.smem <= _SMEM_LIMIT
+
+
+def test_adc_plan_grid_and_kind():
+    assert _adc_plan("topk", 64, 256, 128, 16, 5, H100_SMS).grid == 5
+    assert _adc_plan("rows", 64, 256, 128, 16, 0, H100_SMS).grid == 1
+    with pytest.raises(ValueError):
+        _adc_plan("columns", 64, 256, 128, 16, 5, H100_SMS)

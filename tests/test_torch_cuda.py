@@ -84,19 +84,40 @@ def test_topk_kernel_edges_bit_for_bit(cuda, mode, qn, n, n_valid, d, k):
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
-@pytest.mark.parametrize("layout", ["t_packed", "t_bytes", "rows_packed", "rows_bytes"])
+def _q_ids(order, n_slots, qn, cuda, g):
+    """query-major (the search path), alternating every slot (the index's
+    load check), or shuffled"""
+    major = (torch.arange(n_slots, device=cuda) * qn // n_slots).int()
+    if order == "major":
+        return major
+    if order == "alternating":
+        return (torch.arange(n_slots, device=cuda) % 2).int()
+    return major[torch.randperm(n_slots, device=cuda, generator=g)].contiguous()
+
+
+# layout -> (M, ksub, transposed). Row-major packed rows of 8, 16, 32, 64
+# and 128 bytes: byte loads, then 1, 2, 4 and 8 rotated 16-byte pieces
+SCAN_LAYOUTS = {
+    "t_packed": (16, 16, True), "t_bytes": (8, 256, True),
+    "rows_packed": (16, 16, False), "rows_packed_mb16": (32, 16, False),
+    "rows_packed_mb32": (64, 16, False), "rows_packed_mb64": (128, 16, False),
+    "rows_packed_mb128": (256, 16, False), "rows_bytes": (8, 256, False),
+}
+
+
+@pytest.mark.parametrize("order", ["major", "alternating"])
+@pytest.mark.parametrize("layout", list(SCAN_LAYOUTS))
 @pytest.mark.parametrize("seg", [32, 256, 512])
-def test_adc_scan_kernel_matches_plain_bit_for_bit(cuda, layout, seg):
+def test_adc_scan_kernel_matches_plain_bit_for_bit(cuda, layout, seg, order):
     g = torch.Generator(device=cuda).manual_seed(seg + len(layout))
-    m, ksub = (16, 16) if layout.endswith("packed") else (8, 256)
+    m, ksub, transposed = SCAN_LAYOUTS[layout]
     mb = m // 2 if ksub == 16 else m
-    transposed = layout.startswith("t_")
     shape = (50, mb, seg) if transposed else (50, seg, mb)
     codes = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda, generator=g)
     luts = torch.randn((7, m, ksub), device=cuda, generator=g)
-    n_slots = 300
+    n_slots = 700
     seg_ids = torch.randint(0, 50, (n_slots,), dtype=torch.int32, device=cuda, generator=g)
-    q_ids = (torch.arange(n_slots, device=cuda) * 7 // n_slots).int()
+    q_ids = _q_ids(order, n_slots, 7, cuda, g)
     got = adc.adc_scan(codes, luts, seg_ids, q_ids, transposed=transposed, impl="cuda")
     ref = adc.adc_scan(codes, luts, seg_ids, q_ids, transposed=transposed, impl="torch")
     assert torch.equal(got, ref)
@@ -118,20 +139,51 @@ def test_flat_index_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
 
 
-@pytest.mark.parametrize("ksub,m", [(16, 16), (256, 8)])
-@pytest.mark.parametrize("seg,kp", [(32, 4), (256, 10), (512, 100)])
-def test_adc_kernel_matches_plain_bit_for_bit(cuda, ksub, m, seg, kp):
-    g = torch.Generator(device=cuda).manual_seed(seg + kp)
+# ksub, M, SEG, kp, LUT values, slot order, valid counts
+ADC_TOPK_CASES = [
+    *[(ksub, m, seg, kp, "randn", "major", "random") for ksub, m in ((16, 16), (256, 8))
+      for seg, kp in ((32, 4), (256, 10), (512, 100))],
+    # small-integer LUTs: many rows tie, and row order decides
+    (16, 128, 256, 10, "ties", "major", "random"),
+    (16, 128, 256, 10, "ties", "alternating", "random"),
+    (16, 128, 256, 10, "ties", "shuffled", "random"),
+    (16, 128, 32, 8, "ties", "alternating", "random"),
+    (16, 128, 512, 10, "ties", "alternating", "random"),
+    (16, 16, 32, 32, "ties", "major", "random"),              # kp = SEG
+    (16, 16, 256, 256, "ties", "shuffled", "random"),
+    (16, 128, 512, 512, "randn", "major", "random"),
+    (16, 128, 256, 10, "ties", "major", "zero_or_full"),     # valid_cnt 0 and SEG
+    (256, 64, 256, 10, "randn", "alternating", "random"),    # 64 KiB LUT
+    (256, 128, 256, 10, "ties", "shuffled", "random"),       # 128 KiB LUT
+    (256, 128, 512, 16, "randn", "major", "random"),
+    (256, 3, 37, 5, "ties", "major", "random"),              # 111-byte tiles
+    (16, 16, 1000, 20, "ties", "major", "random"),           # rows in two passes
+    (16, 16, 2048, 64, "randn", "shuffled", "zero_or_full"),
+]
+
+
+@pytest.mark.parametrize("ksub,m,seg,kp,values,order,valid", ADC_TOPK_CASES)
+def test_adc_kernel_matches_plain_bit_for_bit(cuda, ksub, m, seg, kp, values, order, valid):
+    """Values and rows bit for bit, (value desc, row asc) ties included,
+    over 2,000 slots of 7 queries, so query boundaries fall inside the
+    persistent blocks' slot ranges."""
+    g = torch.Generator(device=cuda).manual_seed(seg + kp + m)
     mb = m // 2 if ksub == 16 else m
-    codes = torch.randint(0, 256, (50, mb, seg), dtype=torch.uint8, device=cuda,
-                          generator=g)
-    luts = torch.randn((7, m, ksub), device=cuda, generator=g)
-    n_slots = 300
+    codes = torch.randint(0, 256 if ksub > 16 or mb * 2 == m else 16, (50, mb, seg),
+                          dtype=torch.uint8, device=cuda, generator=g)
+    if values == "ties":
+        luts = torch.randint(-2, 3, (7, m, ksub), device=cuda, generator=g).float()
+    else:
+        luts = torch.randn((7, m, ksub), device=cuda, generator=g)
+    n_slots = 2000
     seg_ids = torch.randint(0, 50, (n_slots,), dtype=torch.int32, device=cuda, generator=g)
-    q_ids = (torch.arange(n_slots, device=cuda) * 7 // n_slots).int()
-    valid = torch.randint(0, seg + 1, (n_slots,), dtype=torch.int32, device=cuda,
-                          generator=g)
-    args = (codes, luts, seg_ids, q_ids, valid, kp)
+    q_ids = _q_ids(order, n_slots, 7, cuda, g)
+    if valid == "zero_or_full":
+        valid_cnt = (torch.randint(0, 2, (n_slots,), device=cuda, generator=g) * seg).int()
+    else:
+        valid_cnt = torch.randint(0, seg + 1, (n_slots,), dtype=torch.int32, device=cuda,
+                                  generator=g)
+    args = (codes, luts, seg_ids, q_ids, valid_cnt, kp)
     kv, ki = adc.adc_topk(*args, impl="cuda")
     pv, pi = adc.adc_topk(*args, impl="torch")
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
