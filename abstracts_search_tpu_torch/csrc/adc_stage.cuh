@@ -1,5 +1,5 @@
-// The staging ring shared by the staged ADC kernels (adc_topk.cu, and the
-// row-major packed scan in adc_scan.cu), for Hopper (sm_90a).
+// The staging ring shared by every ADC kernel (the fused scan in
+// adc_topk.cu, the raw scans in adc_scan.cu), for Hopper (sm_90a).
 //
 // A slot's payload codes[seg_ids[s]] is one contiguous block of
 // tile_bytes. A block walks a contiguous slot range; consumer warp w takes
@@ -12,11 +12,11 @@
 // of the one it reads, and no warp waits on another's copies.
 //
 // The query's LUT [m, ksub] f32 is staged into one of nl buffers (two
-// where it is small, so a block crosses a query boundary without a stall)
-// by the block's producer warp (warp W). It walks the slots in order and
-// posts each slot's buffer and load parity in a mailbox of MAIL entries
-// per warp, so a warp that runs ahead of the others finds its next slots'
-// LUTs posted. It reloads a buffer only when the slot's query is in
+// where they fit beside the ring, so a block crosses a query boundary
+// without a stall) by the block's producer warp (warp W). It walks the
+// slots in order and posts each slot's buffer and load parity in a
+// mailbox of MAIL entries per warp, so a warp that runs ahead of the
+// others finds its next slots' LUTs posted. It reloads a buffer only when the slot's query is in
 // neither, and only once every slot that used the buffer is done (the
 // warps count their finished slots in done[w]); so a consumer's LUT
 // barrier is never more than one phase from the load it waits for. q_ids

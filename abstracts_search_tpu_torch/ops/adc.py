@@ -24,10 +24,9 @@ in its low nibble and 2j+1 in its high nibble) or unpacked (ksub up to
 Each op has an ``impl`` switch:
 
 - ``"cuda"``: the hand-written kernels, ``csrc/adc_topk.cu`` and
-  ``csrc/adc_scan.cu``. The fused scan and the row-major packed scan
-  stage each slot's tile through a ring of shared-memory stages filled
-  by bulk async copies (``csrc/adc_stage.cuh``), with the launch plan
-  from ``_adc_plan``; the other raw scans read device memory directly;
+  ``csrc/adc_scan.cu``. Every one stages each slot's tile through a ring
+  of shared-memory stages filled by bulk async copies
+  (``csrc/adc_stage.cuh``), with the launch plan from ``_adc_plan``;
 - ``"torch"``: the plain versions ``adc_topk_torch`` (twin of the JAX
   package's ``adc_topk_xla``) and ``adc_scan_torch`` (twin of
   ``adc_scan_xla``). They add the M lookups in the kernels' order, so
@@ -55,16 +54,16 @@ launches = 0
 scan_launches = {"adc_kernel_t": 0, "adc_kernel_packed4": 0, "adc_kernel": 0}
 
 _SMEM_LIMIT = 232_448
-_BLOCKS_PER_SM = 16
 _SLOT_CHUNK = 8192
 
-# the staged kernels (csrc/adc_stage.cuh): at most 16 consumer warps per
+# the staging ring (csrc/adc_stage.cuh): at most 16 consumer warps per
 # block, chunks of about 4 KiB, and 3, else 2, else 1 stages per warp
 _STAGE_MAX_WARPS = 16
 _CHUNK_TARGET = 4096
 _DEPTHS = (3, 2, 1)
-# LUTs from this size on get one buffer, not two
-_ONE_LUT_BYTES = 64 * 1024
+# two LUT buffers where they leave room for this many warps at full depth
+# (a block then crosses a query boundary without draining); else one
+_TWO_LUT_WARPS = 8
 # LUT mailbox entries per warp (adc_stage::MAIL)
 _MAIL = 4
 
@@ -80,11 +79,11 @@ def _is_packed(codes3, luts, transposed: bool) -> bool:
 
 
 class AdcPlan(NamedTuple):
-    rows: int          # "topk": rows per lane (a power of two <= 16); "rows": 0
-    passes: int        # "topk": passes of 32 * rows over a slot's rows (scratch if > 1)
+    rows: int          # "topk", "cols": rows per lane (a power of two <= 16); "rows": 0
+    passes: int        # "topk", "cols": passes of 32 * rows over a slot's rows
     warps: int         # consumer warps per block (one producer warp more)
     depth: int         # ring stages per consumer warp
-    chunk: int         # per chunk: byte-rows j ("topk") or rows ("rows")
+    chunk: int         # per chunk: byte-rows j ("topk", "cols") or rows ("rows")
     chunk_bytes: int
     n_luts: int        # LUT buffers
     smem: int          # shared memory bytes per block
@@ -104,21 +103,24 @@ def _stage_smem(warps: int, depth: int, chunk_bytes: int, lut_bytes: int, n_luts
             + 8 * (warps * depth + n_luts) + 4 * warps * (2 + _MAIL))
 
 
+@functools.lru_cache(maxsize=256)
 def _adc_plan(kind: str, mb: int, seg: int, m: int, ksub: int, n_slots: int,
               sms: int) -> AdcPlan:
-    """The launch plan of a staged kernel: ``kind`` "topk" (the fused
-    scan, transposed [MB, SEG] tiles chunked by byte-rows) or "rows" (the
-    row-major packed scan, [SEG, MB] tiles chunked by rows).
+    """The launch plan of a staged kernel over transposed [MB, SEG] tiles
+    chunked by byte-rows (``kind`` "topk", the fused scan, or "cols", the
+    raw scan) or row-major [SEG, MB] tiles chunked by rows ("rows", the
+    raw scan, packed or a code a byte).
 
     A chunk is about ``_CHUNK_TARGET`` bytes; the ring takes the deepest
     of ``_DEPTHS`` that fits with at least one warp, and then as many
     warps as fit. The chunk halves while not even one warp and one stage
-    fit. LUTs below ``_ONE_LUT_BYTES`` get two buffers. One block per SM
-    (``sms``), at most one per slot. Raises ValueError where one byte-row
-    (or row) and the LUT do not fit shared memory."""
+    fit. The LUT gets two buffers where they leave room for
+    ``_TWO_LUT_WARPS`` warps at full depth (up to 64 KiB LUTs at 4 KiB
+    chunks), else one. One block per SM (``sms``), at most one per slot,
+    so ``n_slots`` past ``sms`` gives the same plan. Raises ValueError
+    where one byte-row (or row) and the LUT do not fit shared memory."""
     lut_bytes = 4 * m * ksub
-    n_luts = 2 if lut_bytes < _ONE_LUT_BYTES else 1
-    if kind == "topk":
+    if kind in ("topk", "cols"):
         rows = min(16, 1 << max(0, (-(-seg // 32) - 1).bit_length()))
         passes = -(-seg // (32 * rows))
         unit, units = seg, mb          # bytes per byte-row, byte-rows per tile
@@ -128,6 +130,8 @@ def _adc_plan(kind: str, mb: int, seg: int, m: int, ksub: int, n_slots: int,
     else:
         raise ValueError(f"unknown kind {kind!r}")
     chunk = max(1, min(units, _CHUNK_TARGET // unit))
+    n_luts = 2 if _stage_smem(_TWO_LUT_WARPS, _DEPTHS[0], chunk * unit, lut_bytes,
+                              2) <= _SMEM_LIMIT else 1
     while True:
         for depth in _DEPTHS:
             fits = [w for w in range(1, _STAGE_MAX_WARPS + 1)
@@ -148,16 +152,21 @@ def _check_smem(kind: str, warps: int, depth: int, chunk_bytes: int, lut_bytes: 
                 n_luts: int, smem: int) -> None:
     """The plan's shared-memory count against the kernel's own, once."""
     lib, fn = ((_lib(), "adc_topk_smem_bytes") if kind == "topk" else
-               (_scan_lib(), "adc_rows_smem_bytes"))
+               (_scan_lib(), "adc_scan_smem_bytes"))
     if getattr(lib, fn)(warps, depth, chunk_bytes, lut_bytes, n_luts) != smem:
         raise RuntimeError(f"the ADC plan and csrc/adc_stage.cuh disagree on shared memory "
                            f"({kind})")
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _launch_plan(kind: str, codes3, mb: int, seg: int, m: int, ksub: int,
                  n_slots: int) -> AdcPlan:
-    sms = torch.cuda.get_device_properties(codes3.device).multi_processor_count
-    p = _adc_plan(kind, mb, seg, m, ksub, n_slots, sms)
+    sms = _sms(codes3.device.index)
+    p = _adc_plan(kind, mb, seg, m, ksub, min(n_slots, sms), sms)
     _check_smem(kind, p.warps, p.depth, p.chunk_bytes, 4 * m * ksub, p.n_luts, p.smem)
     return p
 
@@ -321,12 +330,12 @@ def _scan_lib():
     lib = _build.library("adc_scan")
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.adc_scan_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp, vp]
-        lib.adc_scan_launch.restype = i
-        lib.adc_rows_packed_launch.argtypes = [vp, vp, vp, vp] + [i] * 9 + [vp, vp]
-        lib.adc_rows_packed_launch.restype = i
-        lib.adc_rows_smem_bytes.argtypes = [i] * 5
-        lib.adc_rows_smem_bytes.restype = ctypes.c_longlong
+        lib.adc_cols_launch.argtypes = [vp] * 4 + [i] * 12 + [vp, vp]
+        lib.adc_cols_launch.restype = i
+        lib.adc_rows_launch.argtypes = [vp] * 4 + [i] * 11 + [vp, vp]
+        lib.adc_rows_launch.restype = i
+        lib.adc_scan_smem_bytes.argtypes = [i] * 5
+        lib.adc_scan_smem_bytes.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -339,35 +348,22 @@ def adc_scan_cuda(codes3, luts, seg_ids, q_ids, *, transposed: bool):
     _, m, ksub = luts.shape
     n_slots = seg_ids.shape[0]
     dev = codes3.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if not transposed and packed:          # the staged scan (kernel 5)
-        p = _launch_plan("rows", codes3, mb, seg, m, ksub, n_slots)
-        out = torch.empty((n_slots, seg), dtype=torch.float32, device=dev)
-        if n_slots == 0:
-            return out
-        err = _scan_lib().adc_rows_packed_launch(
-            codes3.data_ptr(), luts.data_ptr(), seg_ids.data_ptr(), q_ids.data_ptr(),
-            n_slots, mb, seg, m, p.warps, p.depth, p.chunk, p.n_luts, p.grid,
-            out.data_ptr(), stream)
-        _build.check(err, "adc_scan")
-        scan_launches["adc_kernel_packed4"] += 1
-        return out
-    smem = 4 * m * ksub
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"a [{m}, {ksub}] LUT does not fit shared memory")
+    p = _launch_plan("cols" if transposed else "rows", codes3, mb, seg, m, ksub, n_slots)
     out = torch.empty((n_slots, seg), dtype=torch.float32, device=dev)
     if n_slots == 0:
         return out
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # the LUT is restaged per query a block meets: fewer, longer blocks
-    # where a large LUT limits the blocks an SM holds anyway
-    per_sm = max(1, min(_BLOCKS_PER_SM, _SMEM_LIMIT // max(smem, 1)))
-    spb = max(1, n_slots // (sms * per_sm))
-    err = _scan_lib().adc_scan_launch(
-        codes3.data_ptr(), luts.data_ptr(), seg_ids.data_ptr(), q_ids.data_ptr(),
-        n_slots, mb, seg, m, ksub, int(packed), int(transposed), spb, out.data_ptr(), stream)
+    args = (codes3.data_ptr(), luts.data_ptr(), seg_ids.data_ptr(), q_ids.data_ptr(),
+            n_slots, mb, seg, m, ksub, int(packed))
+    tail = (p.warps, p.depth, p.chunk, p.n_luts, p.grid, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if transposed:                          # kernel 4
+        err = _scan_lib().adc_cols_launch(*args, p.rows, *tail)
+        key = "adc_kernel_t"
+    else:                                   # kernels 5 (packed) and 6 (bytes)
+        err = _scan_lib().adc_rows_launch(*args, *tail)
+        key = "adc_kernel_packed4" if packed else "adc_kernel"
     _build.check(err, "adc_scan")
-    scan_launches["adc_kernel_t" if transposed else "adc_kernel"] += 1
+    scan_launches[key] += 1
     return out
 
 

@@ -10,15 +10,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
   build   every kernel from abstracts_search_tpu_torch/csrc with nvcc
           (sm_90a), all sources compiled in parallel; fails unless the
           top-k library's SASS (cuobjdump) holds tensor-core instructions
-          and both ADC libraries' SASS hold bulk async copies (UBLKCP).
+          and every kernel function of both ADC libraries stages by bulk
+          async copies (UBLKCP in its own SASS).
   kernels each kernel against its plain PyTorch version on the card at
           the paths' shapes: exact top-k (index mismatches beyond ties
           within f32 accumulation error fail), fast top-k (beyond one
           truncation step), ADC scans (bit for bit), with CUDA-event times;
           then the top-k's tile edges in both modes (odd d, k 300 at Q
           256, Q 1/7/129/300, a ragged n_valid, repeated rows), and the
-          staged ADC kernels (3 and 5) on tie-heavy LUTs and on q_ids
-          query-major, alternating and shuffled (bit for bit).
+          ADC kernels (3-5 at PQ128x4, 4 and 6 at PQ64x8) on tie-heavy
+          LUTs and on q_ids query-major, alternating and shuffled (bit for
+          bit).
   flat    bench.py's configuration: 2,097,152 x 1024 bf16 unit vectors,
           128 queries, k 10, chunk 4096. The fast-mode top-k kernel
           against its plain version, QPS by CUDA events over chained
@@ -42,8 +44,10 @@ Each path (serve, flat, legacy) runs with every launch count set to 0
 just before it and read just after, and fails if one of its kernels
 never launched. Then a ``{"kernels": [...]}`` line with one row per TPU
 kernel (launches from the paths; times and bounds at the inputs the
-paths gave each kernel), the card's nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+paths gave each kernel: ``ms`` by CUDA events around one wrapper call,
+host work between the events included, ``device_ms`` the kernel's own
+time under torch.profiler over the same calls), the card's nvidia-smi
+line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -90,6 +95,11 @@ KERNELS = {
     "adc_kernel": ("adc_scan (row-major, bytes)", CSRC + "adc_scan.cu",
                    "abstracts_search_tpu/ops/adc.py:119"),
 }
+# the kernel functions each row's wrapper launches, as the profiler names them
+DEVICE_NAMES = {"topk": ("range_kernel", "topk_merge_kernel"),
+                "topk_fast": ("range_kernel", "topk_merge_kernel"),
+                "adc_topk": ("adc_topk_kernel",), "adc_kernel_t": ("adc_cols_kernel",),
+                "adc_kernel_packed4": ("adc_rows_kernel",), "adc_kernel": ("adc_rows_kernel",)}
 
 
 def emit(obj) -> None:
@@ -111,6 +121,29 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def device_ms(fn, names, reps: int = 10) -> float:
+    """Milliseconds per call of ``fn`` on the card by torch.profiler: the
+    device time of the kernels whose names hold one of ``names``, over
+    ``reps`` calls. A profiler run can miss its first launches, so each
+    kernel's mean span counts (a call launches each of its kernels
+    once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names):
+            spans.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    if not spans:
+        raise AssertionError(f"the profiler saw no kernel named {names}")
+    return sum(statistics.mean(v) for v in spans.values()) / 1e3
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -276,29 +309,41 @@ def topk_edges(x, g) -> list:
     return out
 
 
-def sass_count(lib_path: str, *mnemonics: str) -> int:
-    """Lines of a built library's SASS (cuobjdump) holding any of the
-    mnemonics."""
+def sass_by_function(lib_path: str) -> dict:
+    """A built library's SASS (cuobjdump), split by kernel function:
+    mangled name -> its SASS text."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
-    return sum(1 for line in sass.splitlines() if any(m in line for m in mnemonics))
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = ""
+        elif name is not None:
+            out[name] += line + "\n"
+    return out
+
+
+def sass_count(text: str, *mnemonics: str) -> int:
+    """Lines of SASS holding any of the mnemonics."""
+    return sum(1 for line in text.splitlines() if any(m in line for m in mnemonics))
 
 
 def adc_edges(g) -> list:
-    """The staged ADC kernels (3: adc_topk, 5: the row-major packed scan)
-    against their plain versions, bit for bit, at PQ128x4 over 8,192 slots
-    of 256 queries: small-integer LUTs (many rows tie, and row order
-    decides) and Gaussian ones, each with q_ids query-major (the search
-    path), alternating every slot (the index's load check) and shuffled
-    (a LUT reload at almost every slot). Each timed."""
+    """Every ADC kernel against its plain version, bit for bit, over 8,192
+    slots of 256 queries: at PQ128x4 the fused scan (3) and the packed
+    raw scans, transposed (4) and row-major (5); at PQ64x8 (64 KiB LUTs)
+    the byte-code raw scans, transposed (4) and row-major (6).
+    Small-integer LUTs (many rows tie, and row order decides) and Gaussian
+    ones, each with q_ids query-major (the search path), alternating
+    every slot (the index's load check) and shuffled (a LUT reload at
+    almost every slot). Each timed."""
 
     from abstracts_search_tpu_torch.ops import adc
 
-    n_segs, n_slots, qn, mb, m = 24_576, 8_192, 256, 64, 128
-    codes = torch.randint(0, 256, (n_segs, mb, SEG), dtype=torch.uint8, device="cuda",
-                          generator=g)
-    rows = codes.transpose(1, 2).contiguous()
+    n_segs, n_slots, qn = 24_576, 8_192, 256
     seg_ids = torch.randint(0, n_segs, (n_slots,), dtype=torch.int32, device="cuda",
                             generator=g)
     major = (torch.arange(n_slots, device="cuda") * qn // n_slots).int()
@@ -307,30 +352,43 @@ def adc_edges(g) -> list:
     valid = torch.randint(0, SEG + 1, (n_slots,), dtype=torch.int32, device="cuda",
                           generator=g)
     out = []
-    for values in ("ties", "randn"):
-        luts = (torch.randint(-2, 3, (qn, m, 16), device="cuda", generator=g).float()
-                if values == "ties" else torch.randn((qn, m, 16), device="cuda", generator=g))
-        for order, q_ids in orders.items():
-            for kernel, run in (
-                    ("adc_topk", lambda impl: adc.adc_topk(  # noqa: E731
-                        codes, luts, seg_ids, q_ids, valid, 10, impl=impl)),
-                    ("adc_kernel_packed4", lambda impl: (adc.adc_scan(  # noqa: E731
-                        rows, luts, seg_ids, q_ids, transposed=False, impl=impl),))):
-                got, ref = run("cuda"), run("torch")
-                torch.cuda.synchronize()
-                case = {"kernel": kernel, "luts": values, "q_ids": order, "slots": n_slots,
-                        "bit_equal": all(torch.equal(a, b) for a, b in zip(got, ref)),
-                        "ms": cuda_ms(lambda: run("cuda"))}
-                out.append(case)
-                if not case["bit_equal"]:
-                    raise AssertionError(f"a staged ADC kernel disagrees: {case}")
+    for pq, mb, m, ksub in (("PQ128x4", 64, 128, 16), ("PQ64x8", 64, 64, 256)):
+        codes = torch.randint(0, 256, (n_segs, mb, SEG), dtype=torch.uint8, device="cuda",
+                              generator=g)
+        rows = codes.transpose(1, 2).contiguous()
+
+        def run(kernel, luts, q_ids, impl):
+            if kernel == "adc_topk":
+                return adc.adc_topk(codes, luts, seg_ids, q_ids, valid, 10, impl=impl)
+            transposed = kernel == "adc_kernel_t"
+            return (adc.adc_scan(codes if transposed else rows, luts, seg_ids, q_ids,
+                                 transposed=transposed, impl=impl),)
+
+        kernels = (("adc_topk", "adc_kernel_t", "adc_kernel_packed4") if ksub == 16 else
+                   ("adc_kernel_t", "adc_kernel"))
+        for values in ("ties", "randn"):
+            luts = (torch.randint(-2, 3, (qn, m, ksub), device="cuda", generator=g).float()
+                    if values == "ties" else
+                    torch.randn((qn, m, ksub), device="cuda", generator=g))
+            for order, q_ids in orders.items():
+                for kernel in kernels:
+                    got, ref = run(kernel, luts, q_ids, "cuda"), run(kernel, luts, q_ids, "torch")
+                    torch.cuda.synchronize()
+                    case = {"kernel": kernel, "pq": pq, "luts": values, "q_ids": order,
+                            "slots": n_slots,
+                            "bit_equal": all(torch.equal(a, b) for a, b in zip(got, ref)),
+                            "ms": cuda_ms(lambda: run(kernel, luts, q_ids, "cuda"))}
+                    out.append(case)
+                    if not case["bit_equal"]:
+                        raise AssertionError(f"an ADC kernel disagrees: {case}")
+        del codes, rows
     return out
 
 
 def check_kernels(seed: int):
     """Each kernel against its plain version at the paths' shapes.
     -> (results, the kernel-4 row: no search path reaches that kernel,
-    so its launches are this phase's)."""
+    so its launches are this phase's, timing calls not counted)."""
 
     from abstracts_search_tpu_torch.ops import adc, topk
 
@@ -397,8 +455,7 @@ def check_kernels(seed: int):
     del x, x_pos
 
     n_segs, n_slots, qn = 24_576, 8_192, 256
-    reset_counts()
-    k4 = None
+    k4, k4_launches = None, 0
     for mb, m, ksub in ((64, 128, 16), (64, 64, 256)):
         codes = torch.randint(0, 256, (n_segs, mb, SEG), dtype=torch.uint8,
                               device="cuda", generator=g)
@@ -433,8 +490,10 @@ def check_kernels(seed: int):
             sargs = (c3, luts, seg_ids, q_ids)
             run = lambda impl: adc.adc_scan(*sargs, transposed=transposed,  # noqa: E731
                                             impl=impl)
+            before = counts()["adc_kernel_t"]
             got, ref = run("cuda"), run("torch")
             torch.cuda.synchronize()
+            k4_launches += counts()["adc_kernel_t"] - before
             case = {"slots": n_slots, "mb": mb, "m": m, "ksub": ksub, "seg": SEG,
                     "transposed": transposed, "bit_equal": bool(torch.equal(got, ref)),
                     "ms": cuda_ms(lambda: run("cuda")),
@@ -446,14 +505,18 @@ def check_kernels(seed: int):
                 b, by = bound(n_slots * (mb * SEG + 4 * SEG + 8) + luts.numel() * 4,
                               n_slots * SEG * m, "f32")
                 k4 = {"shape": [n_slots, mb, SEG, m, ksub], "max_abs_err": 0.0,
-                      "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": b,
+                      "ms": case["ms"],
+                      "device_ms": device_ms(lambda: run("cuda"),
+                                             DEVICE_NAMES["adc_kernel_t"]),
+                      "plain_ms": case["plain_ms"], "bound_ms": b,
                       "bound_by": by, "library_ms": None,
-                      "launches_from": "kernels phase: no search path of the JAX "
-                                       "package reaches this kernel"}
+                      "launches_from": "kernels phase, the calls held against the "
+                                       "plain version (timing calls not counted): no "
+                                       "search path of the JAX package reaches this "
+                                       "kernel"}
             del c3
         del codes
-    torch.cuda.synchronize()
-    k4["launches"] = counts()["adc_kernel_t"]
+    k4["launches"] = k4_launches
     out["adc_edges"] = adc_edges(g)
     return out, k4
 
@@ -525,10 +588,14 @@ def flat_phase(seed: int, by_path: dict):
     rows = {
         "topk_fast": {"shape": shape + [FLAT_CHUNK], **fast_cmp,
                       "ms": cuda_ms(lambda: fast(q0), reps=10),
+                      "device_ms": device_ms(lambda: fast(q0), DEVICE_NAMES["topk_fast"],
+                                             reps=5),
                       "plain_ms": cuda_ms(lambda: fast(q0, "torch"), reps=3, warmup=1),
                       "bound_ms": b, "bound_by": by, "library_ms": library_ms},
         "topk_flat": {"shape": shape, "max_abs_err": err, "index_mismatches": bad,
                       "near_ties": ties, "ms": cuda_ms(lambda: exact("cuda"), reps=10),
+                      "device_ms": device_ms(lambda: exact("cuda"), DEVICE_NAMES["topk"],
+                                             reps=5),
                       "plain_ms": cuda_ms(lambda: exact("torch"), reps=3, warmup=1),
                       "bound_ms": b, "bound_by": by, "library_ms": library_ms},
     }
@@ -902,6 +969,7 @@ def probe_and_scan_rows(idx, q, nprobe, k):
     rows = {"topk": {"max_abs_err": t_err, "index_mismatches": t_bad,
                      "shape": [qr.shape[0], N_LISTS, DIM, nprobe],
                      "ms": cuda_ms(lambda: tk("cuda")),
+                     "device_ms": device_ms(lambda: tk("cuda"), DEVICE_NAMES["topk"]),
                      "plain_ms": cuda_ms(lambda: tk("torch"), reps=3, warmup=1),
                      "bound_ms": t_bound, "bound_by": t_by,
                      "library_ms": cuda_ms(lambda: torch.topk(qr @ x.T, nprobe))}}
@@ -920,14 +988,17 @@ def probe_and_scan_rows(idx, q, nprobe, k):
                         "index_mismatches": int((ki != pi).sum()),
                         "shape": [n_slots, mb, SEG, min(k, SEG)],
                         "ms": cuda_ms(lambda: adc.adc_topk(*args, impl="cuda")),
+                        "device_ms": device_ms(lambda: adc.adc_topk(*args, impl="cuda"),
+                                               DEVICE_NAMES["adc_topk"]),
                         "plain_ms": cuda_ms(lambda: adc.adc_topk(*args, impl="torch"),
                                             reps=3, warmup=1),
                         "bound_ms": a_bound, "bound_by": a_by, "library_ms": None}
     return rows
 
 
-def raw_scan_row(idx, q, nprobe):
-    """The row-major scan kernel at the batch-256 search's inputs."""
+def raw_scan_row(idx, q, nprobe, key):
+    """The row-major scan kernel ``key`` at the batch-256 search's
+    inputs."""
 
     from abstracts_search_tpu_torch.ops import adc
 
@@ -941,6 +1012,7 @@ def raw_scan_row(idx, q, nprobe):
                   n_slots * SEG * idx.pq_m, "f32")
     return {"max_abs_err": 0.0, "shape": [n_slots, SEG, mb, idx.pq_m, idx.ksub],
             "ms": cuda_ms(lambda: run("cuda")),
+            "device_ms": device_ms(lambda: run("cuda"), DEVICE_NAMES[key]),
             "plain_ms": cuda_ms(lambda: run("torch"), reps=3, warmup=1),
             "bound_ms": b, "bound_by": by, "library_ms": None}
 
@@ -990,17 +1062,25 @@ def main() -> int:
     if "build" in phases:
         t = time.perf_counter()
         libs = _build.build_all()
-        # the bf16 top-k must run on tensor cores, and the staged ADC
-        # kernels must stage by bulk async copies: count both in the SASS
-        hmma = sass_count(libs["topk"]._name, "HMMA", "HGMMA")
-        bulk = {name: sass_count(libs[name]._name, "UBLKCP") for name in ("adc_topk", "adc_scan")}
+        # the bf16 top-k must run on tensor cores, and every ADC kernel
+        # must stage by bulk async copies: count both in the SASS
+        hmma = sum(sass_count(text, "HMMA", "HGMMA")
+                   for text in sass_by_function(libs["topk"]._name).values())
+        bulk = {name: {fn: sass_count(text, "UBLKCP")
+                       for fn, text in sass_by_function(libs[name]._name).items()}
+                for name in ("adc_topk", "adc_scan")}
         emit({"phase": "build", "seconds": time.perf_counter() - t,
               "nvcc_seconds": _build.build_seconds, "libraries": sorted(libs),
-              "topk_tensor_core_instructions": hmma, "bulk_copy_instructions": bulk})
+              "topk_tensor_core_instructions": hmma,
+              "bulk_copy_instructions": {
+                  name: {"kernel_functions": len(c), "min_per_function": min(c.values(), default=0),
+                         "total": sum(c.values())} for name, c in bulk.items()}})
         if hmma == 0:
             raise AssertionError("no HMMA/HGMMA instruction in the top-k library")
-        if not all(bulk.values()):
-            raise AssertionError(f"no bulk-copy (UBLKCP) instruction in an ADC library: {bulk}")
+        unstaged = [fn for c in bulk.values() for fn, n in c.items() if n == 0]
+        if unstaged or not all(bulk.values()):
+            raise AssertionError(f"ADC kernel functions without a bulk copy (UBLKCP): "
+                                 f"{unstaged or bulk}")
 
     rows, by_path = {}, {}
     if "kernels" in phases:
@@ -1033,7 +1113,7 @@ def main() -> int:
             idx = open_index(art, args.n_rows, args.seed, "legacy_index", transposed=False)
             q_text, res = serve(idx, args.seed, by_path, http=False, path="legacy",
                                 must_launch=("topk", "adc_kernel_packed4"))
-            rows["adc_kernel_packed4"] = raw_scan_row(idx, q_text, 16)
+            rows["adc_kernel_packed4"] = raw_scan_row(idx, q_text, 16, "adc_kernel_packed4")
             del idx
             release()
             idx = open_index(art, PQ8["n_rows"], args.seed + 3, "legacy_pq8_index",
@@ -1041,7 +1121,7 @@ def main() -> int:
                              pq_nbits=PQ8["pq_nbits"], transposed=False)
             q8, res8 = serve(idx, args.seed, by_path, http=False, path="legacy_pq8",
                              must_launch=("topk", "adc_kernel"))
-            rows["adc_kernel"] = raw_scan_row(idx, q8, 16)
+            rows["adc_kernel"] = raw_scan_row(idx, q8, 16, "adc_kernel")
             del idx
             release()
             emit({"phase": "legacy", "nprobe": 16, "k": 10, "pq128x4_rows": res,

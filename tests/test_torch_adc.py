@@ -167,52 +167,117 @@ def _old_accepts(kind, m, ksub, seg):
     return 4 * (lut_words + (seg if kind == "topk" else 0)) <= _SMEM_LIMIT
 
 
+def _lut_near_the_limit(kind, mb, seg, m, ksub):
+    """What the staged kernels refuse: a LUT within one chunk (a byte-row
+    of SEG bytes transposed, a row of MB bytes row-major), plus the ring's
+    fixed bytes, of the limit. The old raw wrapper took these where the
+    LUT alone fitted."""
+    lut = 4 * m * ksub
+    unit = mb if kind == "rows" else seg
+    return _stage_smem(1, 1, unit, lut, 1 if lut > _SMEM_LIMIT // 2 else 2) > _SMEM_LIMIT
+
+
 @pytest.mark.parametrize("seg", [1, 7, 32, 100, 256, 512, 1000, 4096])
 @pytest.mark.parametrize("m,ksub", [(8, 16), (16, 16), (64, 16), (128, 16), (3, 256),
-                                    (64, 256), (128, 256), (200, 256), (256, 256)])
+                                    (24, 256), (64, 256), (128, 256), (200, 256),
+                                    (226, 256), (227, 256), (256, 256)])
 def test_adc_plan_accepts_what_the_old_wrapper_did(m, ksub, seg):
-    mb = m // 2 if ksub == 16 and m % 2 == 0 else m
-    kinds = ["topk"] + (["rows"] if ksub == 16 and mb * 2 == m else [])
-    for kind in kinds:
-        if not _old_accepts(kind, m, ksub, seg):
-            with pytest.raises(ValueError):
-                _adc_plan(kind, mb, seg, m, ksub, 1000, H100_SMS)
-            continue
-        p = _adc_plan(kind, mb, seg, m, ksub, 1000, H100_SMS)
-        assert p.smem == _stage_smem(p.warps, p.depth, p.chunk_bytes, 4 * m * ksub, p.n_luts)
-        assert p.smem <= _SMEM_LIMIT
-        assert 1 <= p.warps <= 16 and 1 <= p.depth <= 3 and p.n_luts in (1, 2)
-        assert p.n_luts == (2 if 4 * m * ksub < 64 * 1024 else 1)
-        unit, units = (seg, mb) if kind == "topk" else (mb, seg)
-        assert 1 <= p.chunk <= units and p.chunk_bytes == p.chunk * unit
-        if kind == "topk":      # a power of two of rows per lane; passes cover SEG
-            assert p.rows in (1, 2, 4, 8, 16)
-            assert 32 * p.rows * p.passes >= seg > 32 * p.rows * (p.passes - 1)
-            assert p.passes == 1 or p.rows == 16
-        assert p.grid == min(1000, H100_SMS)
+    """Every kind over each payload it takes: the fused scan and the
+    transposed raw scan ("cols") over [MB, SEG] tiles, the row-major raw
+    scan ("rows") over [SEG, MB] ones; nibble-packed (MB = M/2) where ksub
+    is 16 and M even, and a code a byte (MB = M) always."""
+    mbs = [m] + ([m // 2] if ksub == 16 and m % 2 == 0 else [])
+    for kind in ("topk", "cols", "rows"):
+        for mb in mbs:
+            if _lut_near_the_limit(kind, mb, seg, m, ksub):
+                # the fused scan's old wrapper refused these too
+                assert kind != "topk" or not _old_accepts(kind, m, ksub, seg)
+                with pytest.raises(ValueError):
+                    _adc_plan(kind, mb, seg, m, ksub, 1000, H100_SMS)
+                continue
+            assert _old_accepts(kind, m, ksub, seg) or kind == "topk"
+            p = _adc_plan(kind, mb, seg, m, ksub, 1000, H100_SMS)
+            assert p.smem == _stage_smem(p.warps, p.depth, p.chunk_bytes, 4 * m * ksub,
+                                         p.n_luts)
+            assert p.smem <= _SMEM_LIMIT
+            assert 1 <= p.warps <= 16 and 1 <= p.depth <= 3 and p.n_luts in (1, 2)
+            # two LUT buffers below 64 KiB, as before, and above only with
+            # 8 warps at full depth beside them
+            if 4 * m * ksub < 64 * 1024:
+                assert p.n_luts == 2
+            elif p.n_luts == 2:
+                assert p.warps >= 8 and p.depth == 3
+            unit, units = (mb, seg) if kind == "rows" else (seg, mb)
+            assert 1 <= p.chunk <= units and p.chunk_bytes == p.chunk * unit
+            if kind != "rows":   # a power of two of rows per lane; passes cover SEG
+                assert p.rows in (1, 2, 4, 8, 16)
+                assert 32 * p.rows * p.passes >= seg > 32 * p.rows * (p.passes - 1)
+                assert p.passes == 1 or p.rows == 16
+            assert p.grid == min(1000, H100_SMS)
 
 
-@pytest.mark.parametrize("kind", ["topk", "rows"])
+@pytest.mark.parametrize("kind,m,seg", [("rows", 226, 256), ("rows", 227, 256),
+                                        ("cols", 226, 256), ("cols", 226, 1000)])
+def test_adc_plan_refuses_only_a_lut_near_the_limit(kind, m, seg):
+    """ksub 256: a 226-subspace LUT (231,424 bytes) leaves room for one
+    row, or one byte-row of 256 codes, but not for a byte-row of 1000; a
+    227-subspace LUT fills the whole 232,448 bytes."""
+    if _lut_near_the_limit(kind, m, seg, m, 256):
+        assert (m, seg) in ((227, 256), (226, 1000))
+        with pytest.raises(ValueError, match="do not fit"):
+            _adc_plan(kind, m, seg, m, 256, 1000, H100_SMS)
+    else:
+        p = _adc_plan(kind, m, seg, m, 256, 1000, H100_SMS)
+        assert p.depth >= 1 and p.warps >= 1 and p.smem <= _SMEM_LIMIT
+
+
+@pytest.mark.parametrize("kind", ["topk", "cols", "rows"])
 def test_adc_plan_keeps_chunks_in_flight_at_the_production_shape(kind):
     """MB 64, SEG 256, PQ128x4: 4 KiB chunks, 3 stages per warp (2 chunks
     in flight ahead of each of 16 warps), two 8 KiB LUT buffers."""
     p = _adc_plan(kind, 64, 256, 128, 16, 51_642, H100_SMS)
     assert p.depth - 1 >= 2 and p.warps == 16 and p.n_luts == 2
     assert p.chunk_bytes == 4096 and p.grid == H100_SMS
-    assert p.rows == (8 if kind == "topk" else 0) and p.passes == 1
+    assert p.rows == (0 if kind == "rows" else 8) and p.passes == 1
     assert p.smem == 256 + 2 * 8192 + 16 * 3 * 4096 + 8 * (48 + 2) + 4 * 16 * 6
+
+
+def test_adc_plan_of_the_byte_code_rows_at_pq64x8():
+    """Kernel 6 at the legacy PQ64x8 shape (MB 64, SEG 256, M 64, ksub
+    256): two 64 KiB LUT buffers, so a block crosses a query boundary
+    without draining, and beside them 8 warps with 2 chunks of 64 rows in
+    flight ahead of each."""
+    p = _adc_plan("rows", 64, 256, 64, 256, 10_177, H100_SMS)
+    assert p.n_luts == 2 and p.depth - 1 >= 2 and p.warps >= 8
+    assert p.chunk == 64 and p.chunk_bytes == 4096 and p.grid == H100_SMS
+    assert p.smem <= _SMEM_LIMIT
+    assert p.smem == _stage_smem(p.warps, p.depth, 4096, 64 * 1024, 2)
+
+
+@pytest.mark.parametrize("m,ksub,mb,seg", [(128, 16, 64, 256), (64, 256, 64, 256),
+                                           (16, 16, 8, 1000)])
+def test_adc_plan_of_the_transposed_raw_scan_is_the_fused_scans(m, ksub, mb, seg):
+    """Kernel 4 is kernel 3's staged sums without the selection: the same
+    rows per lane, passes, ring and chunk (PQ128x4, PQ64x8, and SEG 1000
+    in two passes)."""
+    assert _adc_plan("cols", mb, seg, m, ksub, 8192, H100_SMS) == \
+        _adc_plan("topk", mb, seg, m, ksub, 8192, H100_SMS)
 
 
 @pytest.mark.parametrize("m", [64, 128])
 def test_adc_plan_gives_a_large_lut_one_buffer(m):
-    """64 and 128 KiB LUTs (ksub 256): one buffer, and the ring in what is
-    left."""
+    """A 128 KiB LUT (ksub 256) gets one buffer, and the ring in what is
+    left; a 64 KiB one still gets two, with 8 warps at full depth."""
     p = _adc_plan("topk", m, 256, m, 256, 51_642, H100_SMS)
-    assert p.n_luts == 1 and p.depth == 3 and p.warps >= 8 and p.smem <= _SMEM_LIMIT
+    assert p.n_luts == (2 if m == 64 else 1)
+    assert p.depth == 3 and p.warps >= 8 and p.smem <= _SMEM_LIMIT
 
 
 def test_adc_plan_grid_and_kind():
     assert _adc_plan("topk", 64, 256, 128, 16, 5, H100_SMS).grid == 5
     assert _adc_plan("rows", 64, 256, 128, 16, 0, H100_SMS).grid == 1
+    # slots past one block per SM change nothing (the wrappers clip them)
+    assert _adc_plan("rows", 64, 256, 64, 256, 10_177, H100_SMS) == \
+        _adc_plan("rows", 64, 256, 64, 256, H100_SMS, H100_SMS)
     with pytest.raises(ValueError):
         _adc_plan("columns", 64, 256, 128, 16, 5, H100_SMS)

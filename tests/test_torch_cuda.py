@@ -95,32 +95,57 @@ def _q_ids(order, n_slots, qn, cuda, g):
     return major[torch.randperm(n_slots, device=cuda, generator=g)].contiguous()
 
 
-# layout -> (M, ksub, transposed). Row-major packed rows of 8, 16, 32, 64
-# and 128 bytes: byte loads, then 1, 2, 4 and 8 rotated 16-byte pieces
+# layout -> (M, ksub, transposed, packed). Transposed: kernel 4, packed
+# and a code a byte (a 64 KiB LUT at M 64). Row-major packed rows of 8,
+# 16, 32, 64 and 128 bytes (kernel 5): byte loads, then 1, 2, 4 and 8
+# rotated 16-byte pieces. Row-major bytes (kernel 6): ksub 256 at M 8, 24
+# (byte loads: not a multiple of 16), 64 and 128 (64 and 128 KiB LUTs),
+# and the legacy unpacked 4-bit codes (ksub 16, MB = M)
 SCAN_LAYOUTS = {
-    "t_packed": (16, 16, True), "t_bytes": (8, 256, True),
-    "rows_packed": (16, 16, False), "rows_packed_mb16": (32, 16, False),
-    "rows_packed_mb32": (64, 16, False), "rows_packed_mb64": (128, 16, False),
-    "rows_packed_mb128": (256, 16, False), "rows_bytes": (8, 256, False),
+    "t_packed": (16, 16, True, True), "t_bytes": (8, 256, True, False),
+    "t_bytes_m64": (64, 256, True, False),
+    "rows_packed": (16, 16, False, True), "rows_packed_mb16": (32, 16, False, True),
+    "rows_packed_mb32": (64, 16, False, True), "rows_packed_mb64": (128, 16, False, True),
+    "rows_packed_mb128": (256, 16, False, True), "rows_bytes": (8, 256, False, False),
+    "rows_bytes_m24": (24, 256, False, False), "rows_bytes_m64": (64, 256, False, False),
+    "rows_bytes_m128": (128, 256, False, False), "rows_4bit_bytes": (64, 16, False, False),
 }
 
 
-@pytest.mark.parametrize("order", ["major", "alternating"])
+@pytest.mark.parametrize("values", ["randn", "ties"])
+@pytest.mark.parametrize("order", ["major", "alternating", "shuffled"])
 @pytest.mark.parametrize("layout", list(SCAN_LAYOUTS))
-@pytest.mark.parametrize("seg", [32, 256, 512])
-def test_adc_scan_kernel_matches_plain_bit_for_bit(cuda, layout, seg, order):
+@pytest.mark.parametrize("seg", [32, 256, 512, 1000])
+def test_adc_scan_kernel_matches_plain_bit_for_bit(cuda, layout, seg, order, values):
+    """700 slots of 7 queries over 50 segments: Gaussian LUTs, and
+    small-integer ones (many equal sums); SEG 1000 takes two passes of
+    512 rows transposed and a ragged last chunk row-major."""
     g = torch.Generator(device=cuda).manual_seed(seg + len(layout))
-    m, ksub, transposed = SCAN_LAYOUTS[layout]
-    mb = m // 2 if ksub == 16 else m
+    m, ksub, transposed, packed = SCAN_LAYOUTS[layout]
+    mb = m // 2 if packed else m
     shape = (50, mb, seg) if transposed else (50, seg, mb)
-    codes = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda, generator=g)
-    luts = torch.randn((7, m, ksub), device=cuda, generator=g)
+    codes = torch.randint(0, 256 if packed else ksub, shape, dtype=torch.uint8, device=cuda,
+                          generator=g)
+    if values == "ties":
+        luts = torch.randint(-2, 3, (7, m, ksub), device=cuda, generator=g).float()
+    else:
+        luts = torch.randn((7, m, ksub), device=cuda, generator=g)
     n_slots = 700
     seg_ids = torch.randint(0, 50, (n_slots,), dtype=torch.int32, device=cuda, generator=g)
     q_ids = _q_ids(order, n_slots, 7, cuda, g)
     got = adc.adc_scan(codes, luts, seg_ids, q_ids, transposed=transposed, impl="cuda")
     ref = adc.adc_scan(codes, luts, seg_ids, q_ids, transposed=transposed, impl="torch")
     assert torch.equal(got, ref)
+
+
+def test_adc_plan_refuses_a_lut_that_fills_shared_memory(cuda):
+    """ksub 256 at M 227: the LUT alone is 232,448 bytes; the wrapper
+    raises before any launch."""
+    codes = torch.zeros((2, 32, 227), dtype=torch.uint8, device=cuda)
+    luts = torch.zeros((1, 227, 256), device=cuda)
+    ids = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="do not fit"):
+        adc.adc_scan(codes, luts, ids, ids, transposed=False, impl="cuda")
 
 
 def test_flat_index_on_the_card_matches_the_cpu(cuda):
