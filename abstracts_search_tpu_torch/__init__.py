@@ -4,11 +4,14 @@ PyTorch and CUDA (NVIDIA Hopper, ``sm_90a``).
 A second package beside the JAX one, ported slice by slice. What runs
 here today:
 
-- the serving path: hash-embedded queries -> ``IVFPQIndex`` probe
-  (hand-written streaming top-k kernel) -> ADC scan (fused scan +
-  per-slot top-k kernel over transposed lists, raw scan kernels over
-  row-major legacy lists) -> ragged per-query merge -> host-side
-  position resolution -> ``SearchEngine`` / HTTP;
+- the serving path: ``run_server(cfg)`` -> ``SearchEngine.from_artifacts``
+  (index, ``params.json``, the ``ids.parquet`` id map, delta
+  sub-indexes, OpenAlex hydration) -> hash-embedded queries ->
+  ``IVFPQIndex`` probe (hand-written streaming top-k kernel) -> ADC scan
+  (fused scan + per-slot top-k kernel over transposed lists, raw scan
+  kernels over row-major legacy lists) over lists on the card, gathered
+  from the memmap per batch (host storage), or both (hybrid) -> ragged
+  per-query merge -> host-side position resolution -> ids / HTTP;
 - flat search: ``FlatIndex`` (exact streaming top-k), and the fast-mode
   top-k that ``bench.py``'s configuration runs.
 
@@ -18,7 +21,10 @@ here today:
                  search index and the flat index.
 - ``parallel`` — the top-k merge over corpus parts.
 - ``models`` — the offline ``HashEmbedder``.
-- ``serve``  — search engine, micro-batcher, HTTP app.
+- ``serve``  — search engine, micro-batcher, HTTP app, OpenAlex hydration.
+- ``storage`` — the lazy ``ids.parquet`` id map and its binary sidecar.
+- ``utils``  — stage timers and profiler scopes.
+- ``driver`` — the delta-compaction policy.
 
 Entry points default to the CUDA device and raise without one; pass
 ``device="cpu"`` for the plain-PyTorch route.

@@ -79,8 +79,9 @@ class Config:
     opq: bool = True
     # "auto" | "device" (lists in device memory) | "host" (memmap) |
     # "hybrid" (hottest lists on the device up to index_hot_bytes, cold
-    # tail from the memmap). The port serves "device" ("auto" resolves
-    # to it); "host" and "hybrid" are still to be ported.
+    # tail from the memmap). "auto" serves "device" where the codes fit
+    # the card's free memory less IVFPQIndex.AUTO_HEADROOM_BYTES, else
+    # "hybrid".
     index_storage: str = "auto"
     index_hot_bytes: int = 1 << 30
     # packed-list segment rows: smaller segments shed per-list tail

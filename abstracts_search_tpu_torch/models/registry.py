@@ -4,6 +4,9 @@
                bit-identical to the JAX package's. Offline runs and tests
                use it; every stage downstream of embedding runs for real.
 - ``stella`` : the real encoder — not yet ported.
+- ``auto``   : stella where it loads, else the hash embedder with a
+               warning; while the encoder is not ported, always the
+               hash embedder.
 
 An embedder is ``texts -> np.ndarray [n, dim] float32`` with a
 ``queries(texts)`` variant that applies the query prompt.
@@ -12,10 +15,13 @@ An embedder is ``texts -> np.ndarray [n, dim] float32`` with a
 from __future__ import annotations
 
 import hashlib
+import logging
 
 import numpy as np
 
 from ..config import Config
+
+logger = logging.getLogger(__name__)
 
 
 class HashEmbedder:
@@ -42,6 +48,10 @@ class HashEmbedder:
 def get_embedder(name: str, cfg: Config):
     if name == "hash":
         return HashEmbedder(cfg.embed_dim)
-    if name in ("stella", "auto"):
-        raise NotImplementedError(f"embedder {name!r}: encoder not yet ported")
+    if name == "stella":
+        raise NotImplementedError("embedder 'stella': encoder not yet ported")
+    if name == "auto":
+        logger.warning("stella unavailable (%s); falling back to hash embedder",
+                       "encoder not yet ported")
+        return HashEmbedder(cfg.embed_dim)
     raise ValueError(f"unknown embedder {name!r}")

@@ -12,6 +12,7 @@ import logging
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..config import Config, load_config
 from .engine import SearchEngine
 
 logger = logging.getLogger(__name__)
@@ -114,15 +115,22 @@ def make_handler(engine: SearchEngine, batcher=None):
     return Handler
 
 
-def run_server(*, engine: SearchEngine, host: str = "127.0.0.1", port: int = 7860,
-               micro_batch: bool = True, micro_batch_workers: int = 4,
+def run_server(cfg: Config | None = None, *, engine: SearchEngine | None = None,
+               embedder: str = "auto", device=None, host: str = "127.0.0.1",
+               port: int = 7860, micro_batch: bool = True, micro_batch_workers: int = 4,
                on_bound=None) -> None:
-    """Serve ``engine`` until ``server.shutdown()`` (building one from an
-    artifact directory is still to be ported). ``on_bound(server)`` is
+    """Serve until ``server.shutdown()``. Without ``engine``, build it
+    from ``cfg``'s artifact directory on ``device`` (the card by
+    default; ``SearchEngine.from_artifacts``; ``cfg`` defaults to
+    ``load_config()``). ``on_bound(server)`` is
     called once the socket is bound, e.g. to learn the port picked for
     ``port=0`` or to keep a handle for shutdown from another thread."""
     from .batcher import MicroBatcher
 
+    if engine is None:
+        cfg = cfg if cfg is not None else load_config()
+        engine = SearchEngine.from_artifacts(cfg, index_dir=cfg.index_dir, embedder=embedder,
+                                             device=device)
     batcher = (MicroBatcher(engine, workers=micro_batch_workers)
                if micro_batch else None)
     server = ThreadingHTTPServer((host, port), make_handler(engine, batcher))

@@ -113,6 +113,7 @@ class MicroBatcher:
             try:
                 q = self.engine.encode_queries(texts)
                 rows = self.engine.search_batch_encoded(q, k=kmax)
+                self.engine.hydrate_rows(rows)
             except Exception as exc:  # noqa: BLE001 — deliver to callers
                 for _, _, fut in batch:
                     fut.set_exception(exc)

@@ -34,13 +34,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
           the plain path on the same index (hash-embedded texts and
           reconstructions of corpus rows), batch-256 QPS, single-query
           p50, and an HTTP round trip through run_server.
+  stages_batch256
+          on the served index (device storage): one batch-256 search
+          split by StageTimer into encode, probe, slot list, scan and
+          merge, device->host copy, row resolve and id strings, each
+          ended by a synchronize; the stages must sum to within 10% of
+          the batch's host-clock time.
+  hybrid  the same artifact reopened with storage="hybrid" at a 6 GiB hot
+          budget (the largest lists on the card, a cold tail gathered
+          from the memmap per batch): the kernel path against the plain
+          path, and against the device storage's kept results (scores bit
+          for bit, positions identical except among equal scores); QPS,
+          p50, the cold share of live slots and the gather's time.
+  host    the same artifact with storage="host" (every probed segment
+          gathered per batch), the same checks, batch-16 and batch-256
+          times and the bytes gathered; then, in the legacy phase, the
+          row-major PQ64x8 artifact in host storage (path host_pq8).
   legacy  after the transposed index is freed and deleted: the same
           geometry written row-major (legacy format<=2 layout, raw scan
           kernel for packed rows) and served with the same checks, then a
           row-major PQ64x8 artifact (4,096 lists, 2,097,152 rows, raw scan
           kernel for byte codes) held against its plain path.
 
-Each path (serve, flat, legacy) runs with every launch count set to 0
+Each path (serve, flat, hybrid, host, legacy, legacy_pq8, host_pq8)
+runs with every launch count set to 0
 just before it and read just after, and fails if one of its kernels
 never launched. Then a ``{"kernels": [...]}`` line with one row per TPU
 kernel (launches from the paths; times and bounds at the inputs the
@@ -77,6 +94,9 @@ N_LISTS, DIM, PQ_M, PQ_NBITS, SEG = 65_536, 1024, 128, 4, 256
 PQ8 = {"n_lists": 4096, "pq_m": 64, "pq_nbits": 8, "n_rows": 2_097_152}
 # bench.py's configuration (BASELINE.md config 1)
 FLAT_N, FLAT_Q, FLAT_K, FLAT_CHUNK = 2_097_152, 128, 10, 4096
+# hybrid storage's hot budget at the serve geometry: the largest lists,
+# about 46% of the 12.9 GiB of codes, on the card; a real cold tail
+HYBRID_HOT_BYTES = 6 << 30
 FLAT_METRIC = (f"flat IP search QPS (fast selection; {FLAT_N}x{DIM} corpus, "
                f"batch {FLAT_Q}, k={FLAT_K})")
 
@@ -713,21 +733,16 @@ def release() -> None:
 
 
 def open_index(art: Path, n_rows: int, seed: int, phase: str, **kw):
-    """Write, then load, one artifact; emits the phase line."""
-
-    from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
+    """Write, then load (device storage), one artifact; emits the phase
+    line."""
 
     shutil.rmtree(art, ignore_errors=True)
     t = time.perf_counter()
     info = write_index(art, n_rows, seed, **kw)
     t_write = time.perf_counter() - t
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    idx = IVFPQIndex.load(art)
-    t_load = time.perf_counter() - t
-    emit({"phase": phase, **info, "write_seconds": t_write, "load_seconds": t_load,
-          "resident_gib": torch.cuda.memory_allocated() / 2**30,
-          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    idx, load = open_storage(art, "device")
+    emit({"phase": phase, **info, "write_seconds": t_write, **load,
+          "seconds": time.perf_counter() - t})
     return idx
 
 
@@ -746,11 +761,12 @@ def reconstructions(idx, n: int, seed: int):
     # an empty list shares its start with the next list, so "right"
     # finds the list that owns the segment
     lists = np.searchsorted(p.seg_start, segs, side="right") - 1
-    st, wt = torch.from_numpy(segs).cuda(), torch.from_numpy(within).cuda()
-    codes = idx._codes[st, :, wt] if p.transposed else idx._codes[st, wt]   # [n, MB]
-    if idx.pq_nbits == 4:
+    # from the memmap, so any storage serves: [n, MB]
+    codes = torch.from_numpy(np.asarray(p.data[segs, :, within] if p.transposed
+                                        else p.data[segs, within])).cuda()
+    if codes.shape[1] * 2 == idx.pq_m:            # nibble-packed 4-bit codes
         codes = torch.stack([codes & 15, codes >> 4], dim=2).reshape(n, idx.pq_m)
-    m = torch.arange(idx.pq_m, device="cuda")
+    m = torch.arange(idx.pq_m, device=idx.device)
     resid = idx._pq_cent[m[None, :], codes.long()]                           # [n, M, dsub]
     v = idx._cent[torch.from_numpy(lists).cuda()] + resid.reshape(n, DIM)
     q = v @ idx._rot.T          # search rotates by q @ rot; rot is orthogonal
@@ -812,8 +828,9 @@ def hold_against_plain(idx, q_sets: dict, own) -> dict:
     return res
 
 
-def engine_times(engine, q_text, texts) -> dict:
-    """Batch-256 QPS and single-query p50 through the engine (host clock)."""
+def engine_times(engine, q_text, texts, batch16: bool = False) -> dict:
+    """Batch-256 QPS and single-query p50 through the engine (host
+    clock); batch-16 times too where asked."""
 
     engine.search_batch_encoded(q_text, 10)
     batch_s = []
@@ -828,9 +845,18 @@ def engine_times(engine, q_text, texts) -> dict:
         r = engine.search(texts[i % len(texts)], 10)
         single_s.append(time.perf_counter() - t)
     assert len(r) == 10
-    return {"qps_batch256": 256 / statistics.median(batch_s),
-            "batch256_ms_median": statistics.median(batch_s) * 1e3,
-            "single_query_p50_ms": statistics.median(single_s) * 1e3}
+    res = {"qps_batch256": 256 / statistics.median(batch_s),
+           "batch256_ms_median": statistics.median(batch_s) * 1e3,
+           "single_query_p50_ms": statistics.median(single_s) * 1e3}
+    if batch16:
+        b16 = []
+        for i in range(10):
+            t = time.perf_counter()
+            engine.search_batch_encoded(q_text[16 * i:16 * (i + 1)], 10)
+            b16.append(time.perf_counter() - t)
+        res.update(qps_batch16=16 / statistics.median(b16),
+                   batch16_ms_median=statistics.median(b16) * 1e3)
+    return res
 
 
 def profile_batches(engine, q, reps: int = 3) -> dict:
@@ -880,19 +906,29 @@ def queries(idx, seed: int):
     return emb, texts, emb.queries(texts), q_rec, own
 
 
-def serve(idx, seed: int, by_path: dict, *, http: bool, path: str, must_launch):
-    """The search path through SearchEngine, counted as ``path``."""
+def serve(idx, seed: int, by_path: dict, *, http: bool, path: str, must_launch,
+          kept=None, batch16: bool = False):
+    """The search path through SearchEngine, counted as ``path``; held
+    against the plain path, and against ``kept`` (another storage's
+    results on the same queries) where given. -> (context: engine,
+    texts, query sets; the phase's results)."""
 
     from abstracts_search_tpu_torch.serve.engine import SearchEngine
 
     emb, texts, q_text, q_rec, own = queries(idx, seed)
     engine = SearchEngine(idx, _LazyIds(), emb, nprobe=16)
+    q_sets = {"text": q_text, "recon": q_rec}
 
     def run():
         t0 = time.perf_counter()
-        res = hold_against_plain(idx, {"text": q_text, "recon": q_rec}, own)
-        res.update(engine_times(engine, q_text, texts))
+        res = hold_against_plain(idx, q_sets, own)
+        if kept is not None:
+            res["vs_device_storage"] = hold_against_kept(idx, q_sets, kept)
+        res.update(engine_times(engine, q_text, texts, batch16=batch16))
         res["profile_batch256"] = profile_batches(engine, q_text)
+        if idx.storage != "device":
+            idx.search(q_text, 10, nprobe=16)
+            res["scan_stats_batch256_np16"] = dict(idx.last_scan_stats)
         if http:
             res["http"] = http_round_trip(engine, texts)
         res["seconds"] = time.perf_counter() - t0
@@ -900,7 +936,125 @@ def serve(idx, seed: int, by_path: dict, *, http: bool, path: str, must_launch):
 
     res = drive(path, run, must_launch, by_path)
     res["launches"] = by_path[path]
-    return q_text, res
+    return {"engine": engine, "texts": texts, "q_sets": q_sets}, res
+
+
+def keep_results(idx, q_sets: dict) -> dict:
+    """The kernel path's results on the serve queries at nprobe 2 and
+    16, kept to hold another storage against."""
+    return {(name, nprobe): idx.search(q, 10, nprobe=nprobe)
+            for nprobe in (2, 16) for name, q in q_sets.items()}
+
+
+def hold_against_kept(idx, q_sets: dict, kept: dict) -> dict:
+    """This storage against the kept results of the device storage on
+    the same queries: scores bit for bit; positions identical except
+    among equal scores (a group of equal scores holds the same
+    positions, in any order; at the k-th place any of them)."""
+
+    res = {}
+    for (name, nprobe), (kv, kp) in kept.items():
+        v, p = idx.search(q_sets[name], 10, nprobe=nprobe)
+        if not np.array_equal(v, kv):
+            raise AssertionError(f"{idx.storage} scores differ from the device storage's "
+                                 f"({name}, nprobe {nprobe})")
+        reordered = 0
+        for r in np.nonzero((p != kp).any(axis=1))[0]:
+            for u in np.unique(v[r][p[r] != kp[r]]):
+                same = v[r] == u
+                if u != v[r, -1] and (same.sum() < 2
+                                      or set(p[r, same]) != set(kp[r, same])):
+                    raise AssertionError(
+                        f"{idx.storage} positions differ from the device storage's "
+                        f"beyond equal scores ({name}, nprobe {nprobe}, query {r})")
+            reordered += 1
+        res[f"{name}_np{nprobe}"] = {"scores_bit_equal": True,
+                                     "queries_reordered_among_equal_scores": reordered}
+    return res
+
+
+def stage_split(ctx: dict, nprobe: int = 16, k: int = 10, reps: int = 5) -> dict:
+    """One batch-256 search of the engine split by StageTimer into the
+    steps IVFPQIndex.search and the engine run, each ended by a
+    synchronize; the rep of median host-clock time is reported. The
+    stages must sum to within 10% of that time."""
+
+    from abstracts_search_tpu_torch.index.ivfpq import _normalize_rows
+    from abstracts_search_tpu_torch.utils.trace import StageTimer
+
+    engine, texts = ctx["engine"], ctx["texts"]
+    idx = engine.index
+
+    def one():
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer.stage("encode"):
+            q = engine.encode_queries(texts)
+        with torch.inference_mode():
+            with timer.stage("probe"):
+                qt = torch.from_numpy(_normalize_rows(np.asarray(q, np.float32))).cuda()
+                probes, bias, luts = idx._probe(qt, nprobe)
+                torch.cuda.synchronize()
+            with timer.stage("slot_list"):
+                slots = idx._slots(probes, nprobe)
+                torch.cuda.synchronize()
+            with timer.stage("scan_merge"):
+                v, rows = idx._scan_slots(idx._codes, luts, bias, slots, k)
+                torch.cuda.synchronize()
+            with timer.stage("device_to_host"):
+                v, rows = v.cpu().numpy(), rows.cpu().numpy()
+        with timer.stage("row_resolve"):
+            pos = idx._rows_to_pos(rows, idx._seg_map)
+        with timer.stage("id_strings"):
+            hits = [[(float(a), int(b)) for a, b in zip(v[i], pos[i]) if b >= 0]
+                    for i in range(len(texts))]
+            names = iter(engine._resolve_with(engine.ids, [b for row in hits for _, b in row]))
+            out = [[{"id": next(names), "score": a} for a, _ in row] for row in hits]
+        return timer.report(), time.perf_counter() - t0, out
+
+    one()
+    runs = sorted((one() for _ in range(reps)), key=lambda r: r[1])
+    report, total_s, out = runs[len(runs) // 2]
+    want = engine.search_batch(texts, k)
+    if [[r["id"] for r in row] for row in out] != [[r["id"] for r in row] for row in want]:
+        raise AssertionError("the split batch does not return the engine's results")
+    stage_s = sum(st["seconds"] for st in report["stages"])
+    share = abs(stage_s - total_s) / total_s
+    batch_s = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        engine.search_batch(texts, k)
+        batch_s.append(time.perf_counter() - t)
+    res = {"nprobe": nprobe, "k": k, "batch": len(texts),
+           "stages_ms": {st["stage"]: st["seconds"] * 1e3 for st in report["stages"]},
+           "stages_sum_ms": stage_s * 1e3, "batch_ms": total_s * 1e3,
+           "unaccounted_share": share, "batch_ms_all_reps": [r[1] * 1e3 for r in runs],
+           "engine_search_batch_ms_median": statistics.median(batch_s) * 1e3,
+           "live_slots": idx.last_scan_stats.get("live_slots")}
+    if share > 0.10:
+        raise AssertionError(f"stages sum to {stage_s * 1e3:.3f} ms of a "
+                             f"{total_s * 1e3:.3f} ms batch")
+    return res
+
+
+def open_storage(art: Path, storage: str, **kw):
+    """Reopen an artifact in another storage. -> (index, load info)."""
+
+    from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    idx = IVFPQIndex.load(art, storage=storage, **kw)
+    info = {"storage": idx.storage, "load_seconds": time.perf_counter() - t,
+            "resident_gib": torch.cuda.memory_allocated() / 2**30,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if idx.storage == "hybrid":
+        info.update(hot_lists=int((idx._seg_cnt > 0).sum()),
+                    hot_segments=int(idx._codes.shape[0]),
+                    hot_gib=idx._codes.numel() / 2**30,
+                    codes_gib=float(np.prod(idx.packed.data.shape)) / 2**30)
+    return idx, info
 
 
 def http_round_trip(engine, texts) -> str:
@@ -946,8 +1100,8 @@ def main_path_inputs(idx, q, nprobe):
 
     qt = torch.from_numpy(_normalize_rows(np.asarray(q, np.float32))).cuda()
     probes, bias, luts = idx._probe(qt, nprobe)
-    seg_ids, q_ids, valid, _, _ = idx._slots(probes, nprobe)
-    return qt, luts, seg_ids, q_ids, valid
+    slots = idx._slots(probes, nprobe)
+    return qt, luts, slots.seg_ids, slots.q_ids, slots.valid
 
 
 def probe_and_scan_rows(idx, q, nprobe, k):
@@ -1017,6 +1171,49 @@ def raw_scan_row(idx, q, nprobe, key):
             "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
+def tile_row(idx, q, nprobe, key):
+    """Kernel ``key`` (the fused scan, or the row-major byte scan) over
+    the tiles a host-storage batch gathers from the memmap (every
+    probed segment in host storage, the cold ones in hybrid; seg_ids =
+    tile indices), against its plain version, timed and bounded."""
+
+    from abstracts_search_tpu_torch.index.ivfpq import _normalize_rows
+    from abstracts_search_tpu_torch.index.lists import ragged_ranges
+    from abstracts_search_tpu_torch.ops import adc
+
+    qt = torch.from_numpy(_normalize_rows(np.asarray(q, np.float32))).cuda()
+    probes, _, luts = idx._probe(qt, nprobe)
+    pl = probes.cpu().numpy().reshape(-1).astype(np.int64)
+    sidx, pair = ragged_ranges(idx._seg_start_h[pl], idx._host_cnt[pl])
+    codes = idx._stage(idx.packed.data, sidx)
+    n = len(sidx)
+    seg_ids = torch.arange(n, dtype=torch.int32, device=idx.device)
+    q_ids = torch.from_numpy((pair // nprobe).astype(np.int32)).cuda()
+    valid = torch.from_numpy(np.asarray(idx.packed.seg_valid)[sidx].astype(np.int32)).cuda()
+    torch.cuda.synchronize()
+    if key == "adc_topk":
+        kp = 10
+        run = lambda impl: adc.adc_topk(codes, luts, seg_ids, q_ids, valid, kp,  # noqa: E731
+                                        impl=impl)
+        mb, seg = codes.shape[1], codes.shape[2]
+        moved = n * (mb * seg + 12 + kp * 8)
+    else:
+        run = lambda impl: (adc.adc_scan(codes, luts, seg_ids, q_ids,  # noqa: E731
+                                         transposed=False, impl=impl),)
+        seg, mb = codes.shape[1], codes.shape[2]
+        moved = n * (mb * seg + 4 * seg + 8)
+    got, ref = run("cuda"), run("torch")
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"{key} disagrees with its plain version over gathered tiles")
+    b, by = bound(moved + luts.numel() * 4, n * seg * idx.pq_m, "f32")
+    return {"tiles": n, "shape": [n, *codes.shape[1:], idx.pq_m, idx.ksub],
+            "max_abs_err": 0.0, "gathered_bytes": int(codes.numel()),
+            "ms": cuda_ms(lambda: run("cuda")),
+            "device_ms": device_ms(lambda: run("cuda"), DEVICE_NAMES[key]),
+            "plain_ms": cuda_ms(lambda: run("torch"), reps=3, warmup=1),
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
 def kernels_line(rows: dict, by_path: dict) -> list:
     out = []
     for key, (name, source, replaces) in KERNELS.items():
@@ -1036,7 +1233,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-rows", type=int, default=206_962_688)
-    ap.add_argument("--phases", default="device,build,kernels,flat,index,serve,legacy",
+    ap.add_argument("--phases",
+                    default="device,build,kernels,flat,index,serve,stages_batch256,hybrid,"
+                            "host,legacy",
                     help="comma-separated subset, for development runs")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1096,42 +1295,91 @@ def main() -> int:
 
     art = Path(__file__).resolve().parent / "build" / "smoke_index"
     try:
+        kept = None
         if "index" in phases:
             idx = open_index(art, args.n_rows, args.seed, "index")
             if "serve" in phases:
-                q_text, res = serve(idx, args.seed, by_path, http=True, path="serve",
-                                    must_launch=("topk", "adc_topk"))
+                ctx, res = serve(idx, args.seed, by_path, http=True, path="serve",
+                                 must_launch=("topk", "adc_topk"))
                 emit({"phase": "serve", "nprobe": 16, "k": 10, **res})
-                rows.update(probe_and_scan_rows(idx, q_text, 16, 10))
+                rows.update(probe_and_scan_rows(idx, ctx["q_sets"]["text"], 16, 10))
                 if "flat" in phases:
                     rows["topk"]["flat"] = flat_rows["topk_flat"]
+                if "stages_batch256" in phases:
+                    t = time.perf_counter()
+                    res = stage_split(ctx)
+                    emit({"phase": "stages_batch256", **res,
+                          "seconds": time.perf_counter() - t})
+                kept = keep_results(idx, ctx["q_sets"])
+                del ctx
             del idx
+            release()
+
+        if kept is not None and "hybrid" in phases:
+            t = time.perf_counter()
+            idx, info = open_storage(art, "hybrid", hot_budget_bytes=HYBRID_HOT_BYTES)
+            ctx, res = serve(idx, args.seed, by_path, http=False, path="hybrid",
+                             must_launch=("topk", "adc_topk"), kept=kept)
+            st = res["scan_stats_batch256_np16"]
+            info["cold_share_of_live_slots_np16"] = st["cold_live_slots"] / (
+                st["live_slots"] + st["cold_live_slots"])
+            rows["adc_topk"]["hybrid_cold_tiles"] = tile_row(
+                idx, ctx["q_sets"]["text"], 16, "adc_topk")
+            emit({"phase": "hybrid", "hot_budget_bytes": HYBRID_HOT_BYTES, **info,
+                  "nprobe": 16, "k": 10, **res, "seconds": time.perf_counter() - t})
+            del idx, ctx
+            release()
+
+        if kept is not None and "host" in phases:
+            t = time.perf_counter()
+            idx, info = open_storage(art, "host")
+            ctx, res = serve(idx, args.seed, by_path, http=False, path="host",
+                             must_launch=("topk", "adc_topk"), kept=kept, batch16=True)
+            rows["adc_topk"]["host_tiles"] = tile_row(idx, ctx["q_sets"]["text"], 16,
+                                                      "adc_topk")
+            emit({"phase": "host", **info, "nprobe": 16, "k": 10, **res,
+                  "seconds": time.perf_counter() - t})
+            del idx, ctx
             release()
 
         if "legacy" in phases:
             t = time.perf_counter()
             idx = open_index(art, args.n_rows, args.seed, "legacy_index", transposed=False)
-            q_text, res = serve(idx, args.seed, by_path, http=False, path="legacy",
-                                must_launch=("topk", "adc_kernel_packed4"))
-            rows["adc_kernel_packed4"] = raw_scan_row(idx, q_text, 16, "adc_kernel_packed4")
-            del idx
+            ctx, res = serve(idx, args.seed, by_path, http=False, path="legacy",
+                             must_launch=("topk", "adc_kernel_packed4"))
+            rows["adc_kernel_packed4"] = raw_scan_row(idx, ctx["q_sets"]["text"], 16,
+                                                      "adc_kernel_packed4")
+            del idx, ctx
             release()
             idx = open_index(art, PQ8["n_rows"], args.seed + 3, "legacy_pq8_index",
                              n_lists=PQ8["n_lists"], pq_m=PQ8["pq_m"],
                              pq_nbits=PQ8["pq_nbits"], transposed=False)
-            q8, res8 = serve(idx, args.seed, by_path, http=False, path="legacy_pq8",
-                             must_launch=("topk", "adc_kernel"))
-            rows["adc_kernel"] = raw_scan_row(idx, q8, 16, "adc_kernel")
-            del idx
+            ctx, res8 = serve(idx, args.seed, by_path, http=False, path="legacy_pq8",
+                              must_launch=("topk", "adc_kernel"))
+            rows["adc_kernel"] = raw_scan_row(idx, ctx["q_sets"]["text"], 16, "adc_kernel")
+            kept8 = keep_results(idx, ctx["q_sets"])
+            del idx, ctx
             release()
             emit({"phase": "legacy", "nprobe": 16, "k": 10, "pq128x4_rows": res,
                   "pq64x8_rows": res8, "seconds": time.perf_counter() - t})
+            if "host" in phases:
+                t = time.perf_counter()
+                idx, info = open_storage(art, "host")
+                ctx, res = serve(idx, args.seed, by_path, http=False, path="host_pq8",
+                                 must_launch=("topk", "adc_kernel"), kept=kept8,
+                                 batch16=True)
+                rows["adc_kernel"]["host_pq8_tiles"] = tile_row(
+                    idx, ctx["q_sets"]["text"], 16, "adc_kernel")
+                emit({"phase": "host_pq8", **info, "nprobe": 16, "k": 10, **res,
+                      "seconds": time.perf_counter() - t})
+                del idx, ctx
+                release()
     finally:
         shutil.rmtree(art, ignore_errors=True)
 
     if set(KERNELS) <= set(rows):
         emit({"kernels": kernels_line(rows, by_path)})
-    elif {"kernels", "flat", "index", "serve", "legacy"} <= phases:
+    elif {"kernels", "flat", "index", "serve", "hybrid", "host", "legacy"} <= phases:
         raise AssertionError(f"kernel rows missing: {set(KERNELS) - set(rows)}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -222,7 +222,27 @@ def test_row_major_index_on_the_card_matches_the_cpu(cuda):
     _index_on_the_card_matches_the_cpu(transposed=False)
 
 
-def _index_on_the_card_matches_the_cpu(transposed):
+@pytest.mark.parametrize("storage,budget", [("host", None), ("hybrid", "half"),
+                                            ("hybrid", 0), ("hybrid", 1 << 40)],
+                         ids=["host", "hybrid", "hybrid_cold", "hybrid_hot"])
+@pytest.mark.parametrize("transposed", [True, False], ids=["transposed", "row-major"])
+def test_storage_on_the_card_matches_the_cpu(cuda, transposed, storage, budget):
+    """Host and hybrid storage on the card: the kernels over gathered
+    tiles (staged in chunks of 3 tiles, so the pinned ring turns over
+    within and across batches) return the plain device storage's hits."""
+    _index_on_the_card_matches_the_cpu(transposed=transposed, storage=storage,
+                                       budget=budget)
+
+
+@pytest.mark.parametrize("transposed", [True, False], ids=["transposed", "row-major"])
+def test_unpacked_4bit_index_on_the_card_matches_the_cpu(cuda, transposed):
+    """Legacy 4-bit artifacts hold one code a byte (MB = M): the kernels
+    take the payload width from the codes."""
+    _index_on_the_card_matches_the_cpu(transposed=transposed, unpacked=True)
+
+
+def _index_on_the_card_matches_the_cpu(transposed, storage="device", budget=None,
+                                       unpacked=False):
     from abstracts_search_tpu_torch.index import CSRLists, IVFPQIndex
 
     rng = np.random.default_rng(0)
@@ -235,6 +255,8 @@ def _index_on_the_card_matches_the_cpu(transposed):
     valid = np.clip(sizes[seg_list] - (np.arange(n_segs) - start[seg_list]) * seg, 0, seg)
     rows = np.arange(n_segs * seg, dtype=np.int32).reshape(n_segs, seg)
     data = rng.integers(0, 256, (n_segs, m // 2, seg), dtype=np.uint8)
+    if unpacked:
+        data = np.stack([data & 15, data >> 4], axis=2).reshape(n_segs, m, seg)
     if not transposed:
         data = np.ascontiguousarray(data.transpose(0, 2, 1))
     csr = CSRLists(data=data, row_ids=rows, seg_valid=valid.astype(np.int32),
@@ -248,10 +270,25 @@ def _index_on_the_card_matches_the_cpu(transposed):
     q = rng.standard_normal((20, d)).astype(np.float32)
     out = {}
     for dev in ("cpu", "cuda"):
+        kw = {}
+        if dev == "cuda":
+            kw["storage"] = storage
+            if budget is not None:
+                kw["hot_budget_bytes"] = data.nbytes // 2 if budget == "half" else budget
         idx = IVFPQIndex(n_lists, d, pq_m=m, pq_nbits=4, seg_size=seg, chunk=64,
-                         device=dev)
+                         device=dev, **kw)
+        idx.STAGE_CHUNK_BYTES = 3 * data[0].nbytes
         idx.set_params(cent, pqc, rot)
         idx._install(csr)
-        out[dev] = idx.search(q, 10, nprobe=8)
-    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
-    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=1e-5)
+        before = (adc.launches, dict(adc.scan_launches))
+        out[dev] = [idx.search(q, 10, nprobe=8), idx.search(q[:3], 300, nprobe=2)]
+        if dev == "cuda":
+            # the kernels ran: nothing gave way to the plain version
+            assert (adc.launches, adc.scan_launches) != before
+            if storage == "hybrid":
+                st = idx.last_scan_stats
+                assert (budget == 1 << 40) == (st["cold_live_slots"] == 0)
+                assert (budget == 0) == (st["live_slots"] == 0)
+    for (gv, gp), (pv, pp) in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(gp, pp)
+        np.testing.assert_allclose(gv, pv, rtol=1e-5, atol=1e-5)

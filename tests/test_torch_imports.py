@@ -36,6 +36,31 @@ def test_importing_the_port_leaves_jax_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_the_port_imports_without_pyarrow():
+    """The card's machine has no pyarrow: every module of the port (the
+    engine, the HTTP app and the id map among them) and chip_smoke.py
+    must import without it; pyarrow is imported only where parquet is
+    read or written."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['pyarrow'] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "mods = ['abstracts_search_tpu_torch', 'abstracts_search_tpu_torch.serve.engine',\n"
+        "        'abstracts_search_tpu_torch.serve.app',\n"
+        "        'abstracts_search_tpu_torch.storage.idmap']\n"
+        f"for m in mods + {list(_modules())!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "try:\n"
+        "    import pyarrow.parquet\n"
+        "except ImportError:\n"
+        "    sys.exit(0)\n"
+        "sys.exit(3)\n"
+    )
+    r = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_no_port_file_imports_the_jax_package():
     for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", *(ROOT / "tools").glob("*.py")]:
         for node in ast.walk(ast.parse(p.read_text())):

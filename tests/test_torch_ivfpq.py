@@ -118,7 +118,56 @@ def test_save_load_roundtrip_is_bit_identical(built, tmp_path):
 
 def test_entry_points_refuse_what_is_not_ported(built):
     jidx, art, _ = built
-    with pytest.raises(NotImplementedError):
-        IVFPQIndex.load(art, device="cpu", storage="host")
+    with pytest.raises(ValueError, match="storage"):
+        IVFPQIndex.load(art, device="cpu", storage="bogus")
     with pytest.raises(ValueError):
         IVFPQIndex.load(art, device="cpu", impl="pallas")
+
+
+def unpacked_4bit_artifact(jidx, art, out, *, transposed):
+    """``art``'s PQ x4 codes rewritten one nibble per byte (the legacy
+    unpacked 4-bit payload, MB = M), in transposed or row-major lists,
+    saved with the JAX package's save_lists."""
+    shutil.copytree(art, out)
+    data = np.asarray(jidx.packed.data)                     # [n_segs, M/2, SEG]
+    nib = np.stack([data & 15, data >> 4], axis=2).reshape(
+        data.shape[0], 2 * data.shape[1], data.shape[2])    # [n_segs, M, SEG]
+    if not transposed:
+        nib = np.ascontiguousarray(nib.transpose(0, 2, 1))
+    jax_save_lists(dataclasses.replace(jidx.packed, data=nib, transposed=transposed),
+                   out / "lists")
+    return nib
+
+
+@pytest.mark.parametrize("transposed", [True, False], ids=["transposed", "row-major"])
+def test_unpacked_4bit_artifact_matches_jax(built, tmp_path, transposed):
+    """Legacy 4-bit artifacts store one code a byte: the port takes the
+    payload width from the artifact, as the JAX package does, and returns
+    its positions and the packed artifact's hits."""
+    jidx, art, q = built
+    if jidx.pq.nbits != 4:
+        pytest.skip("4-bit codes only")
+    nib = unpacked_4bit_artifact(jidx, art, tmp_path / "nib", transposed=transposed)
+    j2 = JaxIVFPQ.load(tmp_path / "nib", mesh=build_mesh(), chunk=128, scan_impl="map")
+    idx = IVFPQIndex.load(tmp_path / "nib", device="cpu", chunk=128)
+    assert idx._codes.shape == nib.shape and idx.packed.transposed == transposed
+    packed = IVFPQIndex.load(art, device="cpu", chunk=128)
+    for nprobe, k in ((1, 5), (4, 10), (N_LISTS, 10), (1, 300)):
+        jv, jp = j2.search(q, k, nprobe=nprobe)
+        v, p = idx.search(q, k, nprobe=nprobe)
+        np.testing.assert_array_equal(p, jp)
+        np.testing.assert_allclose(v, jv, rtol=1e-5, atol=1e-5)
+        pv, pp = packed.search(q, k, nprobe=nprobe)
+        np.testing.assert_array_equal(p, pp)
+        np.testing.assert_array_equal(v, pv)
+
+
+def test_payload_width_is_checked(built, tmp_path):
+    """A payload of neither width for the meta's codes is refused."""
+    jidx, art, _ = built
+    bad = tmp_path / "bad"
+    shutil.copytree(art, bad)
+    data = np.asarray(jidx.packed.data)
+    jax_save_lists(dataclasses.replace(jidx.packed, data=data[:, :3]), bad / "lists")
+    with pytest.raises(ValueError, match="does not hold"):
+        IVFPQIndex.load(bad, device="cpu", chunk=128)
