@@ -6,7 +6,8 @@ here today:
 
 - the serving path: ``run_server(cfg)`` -> ``SearchEngine.from_artifacts``
   (index, ``params.json``, the ``ids.parquet`` id map, delta
-  sub-indexes, OpenAlex hydration) -> hash-embedded queries ->
+  sub-indexes, OpenAlex hydration) -> queries embedded by the stella
+  encoder (or the offline hash embedder) ->
   ``IVFPQIndex`` probe (hand-written streaming top-k kernel) -> ADC scan
   (fused scan + per-slot top-k kernel over transposed lists, raw scan
   kernels over row-major legacy lists) over lists on the card, gathered
@@ -20,7 +21,10 @@ here today:
 - ``index``    — CSR list artifacts (same on-disk format 3), the IVF-PQ
                  search index and the flat index.
 - ``parallel`` — the top-k merge over corpus parts.
-- ``models`` — the offline ``HashEmbedder``.
+- ``models`` — the stella encoder (Qwen2 backbone, pooling, MRL head),
+               its embedding pipeline, weight loading (safetensors, HF
+               snapshots, the JAX package's parameters) and the
+               embedder registry with the offline ``HashEmbedder``.
 - ``serve``  — search engine, micro-batcher, HTTP app, OpenAlex hydration.
 - ``storage`` — the lazy ``ids.parquet`` id map and its binary sidecar.
 - ``utils``  — stage timers and profiler scopes.

@@ -121,7 +121,8 @@ def run_server(cfg: Config | None = None, *, engine: SearchEngine | None = None,
                on_bound=None) -> None:
     """Serve until ``server.shutdown()``. Without ``engine``, build it
     from ``cfg``'s artifact directory on ``device`` (the card by
-    default; ``SearchEngine.from_artifacts``; ``cfg`` defaults to
+    default), the ``embedder`` beside the index on that device
+    (``SearchEngine.from_artifacts``; ``cfg`` defaults to
     ``load_config()``). ``on_bound(server)`` is
     called once the socket is bound, e.g. to learn the port picked for
     ``port=0`` or to keep a handle for shutdown from another thread."""

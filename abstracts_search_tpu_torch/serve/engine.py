@@ -87,7 +87,8 @@ class SearchEngine:
         """The engine a deployment serves, from an artifact directory:
         ``index/`` (at ``cfg.index_storage``, ``cfg.index_hot_bytes``),
         ``params.json`` (nprobe; 16 without it), ``ids.parquet`` and
-        ``delta/*/{index,ids.parquet}``. Needs pyarrow."""
+        ``delta/*/{index,ids.parquet}``, and the query encoder
+        (``get_embedder``) on the index's ``device``. Needs pyarrow."""
         import pyarrow.parquet as pq
 
         from ..storage.idmap import IdMap
@@ -141,7 +142,7 @@ class SearchEngine:
                         "search round trip) — %s",
                         total, len(deltas), index.n, remedy)
 
-        emb = get_embedder(embedder, cfg)
+        emb = get_embedder(embedder, cfg, device=device)
         hyd = OpenAlexClient(fetcher) if hydrate else None
         logger.info("engine: %d vectors, nprobe=%d, dim=%d, storage=%s", index.n, nprobe,
                     index.dim, index.storage)

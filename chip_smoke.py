@@ -40,6 +40,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
           merge, device->host copy, row resolve and id strings, each
           ended by a synchronize; the stages must sum to within 10% of
           the batch's host-clock time.
+  encoder on the served index: the stella encoder at full width
+          (Qwen2-1.5B backbone, MRL 1024) with seeded random weights,
+          written by the port's checkpoint writer and loaded back through
+          get_embedder("stella", device="cuda") (whitespace tokenizer);
+          the first 2 layers on the card against the CPU (f32, max abs
+          <= 1e-4, cosine >= 0.99999); bf16 against f32 (a reading);
+          forward times at batch 1 and 256, f32 and bf16, beside their
+          bounds; then typed queries served through SearchEngine (encode
+          included): batch-256 QPS, single-query p50, HTTP, the engine's
+          hits against idx.search on the embedder's own vectors, and the
+          stage split, f32 (StellaEmbedder, embed_batch 32) and bf16.
   hybrid  the same artifact reopened with storage="hybrid" at a 6 GiB hot
           budget (the largest lists on the card, a cold tail gathered
           from the memmap per batch): the kernel path against the plain
@@ -56,7 +67,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
           row-major PQ64x8 artifact (4,096 lists, 2,097,152 rows, raw scan
           kernel for byte codes) held against its plain path.
 
-Each path (serve, flat, hybrid, host, legacy, legacy_pq8, host_pq8)
+Each path (serve, flat, encoder, hybrid, host, legacy, legacy_pq8,
+host_pq8)
 runs with every launch count set to 0
 just before it and read just after, and fails if one of its kernels
 never launched. Then a ``{"kernels": [...]}`` line with one row per TPU
@@ -828,49 +840,52 @@ def hold_against_plain(idx, q_sets: dict, own) -> dict:
     return res
 
 
-def engine_times(engine, q_text, texts, batch16: bool = False) -> dict:
-    """Batch-256 QPS and single-query p50 through the engine (host
+def engine_times(engine, batch, texts, reps: int = 5, singles: int = 50,
+                 batch16: bool = False) -> dict:
+    """Batch-256 QPS (``batch(rows)``: one engine search over those rows
+    of the 256 queries) and single-query p50 through the engine (host
     clock); batch-16 times too where asked."""
 
-    engine.search_batch_encoded(q_text, 10)
+    batch(slice(None))
     batch_s = []
-    for _ in range(5):
+    for _ in range(reps):
         t = time.perf_counter()
-        out = engine.search_batch_encoded(q_text, 10)
+        out = batch(slice(None))
         batch_s.append(time.perf_counter() - t)
     assert len(out) == 256 and all(len(r) == 10 for r in out)
     single_s = []
-    for i in range(50):
+    for i in range(singles):
         t = time.perf_counter()
         r = engine.search(texts[i % len(texts)], 10)
         single_s.append(time.perf_counter() - t)
     assert len(r) == 10
     res = {"qps_batch256": 256 / statistics.median(batch_s),
            "batch256_ms_median": statistics.median(batch_s) * 1e3,
+           "batch256_ms_all": [x * 1e3 for x in batch_s],
            "single_query_p50_ms": statistics.median(single_s) * 1e3}
     if batch16:
         b16 = []
         for i in range(10):
             t = time.perf_counter()
-            engine.search_batch_encoded(q_text[16 * i:16 * (i + 1)], 10)
+            batch(slice(16 * i, 16 * (i + 1)))
             b16.append(time.perf_counter() - t)
         res.update(qps_batch16=16 / statistics.median(b16),
                    batch16_ms_median=statistics.median(b16) * 1e3)
     return res
 
 
-def profile_batches(engine, q, reps: int = 3) -> dict:
-    """torch.profiler over ``reps`` batch searches: the device's busy
-    time (union of kernel and copy intervals) against the host clock,
-    and the device time by kernel name, per batch."""
+def profile_batches(run, reps: int = 3) -> dict:
+    """torch.profiler over ``reps`` calls of ``run`` (one search each):
+    the device's busy time (union of kernel and copy intervals) against
+    the host clock, and the device time by kernel name, per call."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine.search_batch_encoded(q, 10)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(reps):
-            engine.search_batch_encoded(q, 10)
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     spans, by_name = [], {}
@@ -897,11 +912,16 @@ class _LazyIds:
         return f"W{int(p)}"
 
 
+# the serve cells' 256 typed queries: with the s2p_query prompt, 22
+# whitespace tokens each (sequence bucket 32)
+SERVE_TEXTS = [f"semantic search query number {i} about topic {i % 97}" for i in range(256)]
+
+
 def queries(idx, seed: int):
     from abstracts_search_tpu_torch.models.registry import HashEmbedder
 
     emb = HashEmbedder(DIM)
-    texts = [f"semantic search query number {i} about topic {i % 97}" for i in range(256)]
+    texts = list(SERVE_TEXTS)
     q_rec, own = reconstructions(idx, 256, seed)
     return emb, texts, emb.queries(texts), q_rec, own
 
@@ -924,8 +944,10 @@ def serve(idx, seed: int, by_path: dict, *, http: bool, path: str, must_launch,
         res = hold_against_plain(idx, q_sets, own)
         if kept is not None:
             res["vs_device_storage"] = hold_against_kept(idx, q_sets, kept)
-        res.update(engine_times(engine, q_text, texts, batch16=batch16))
-        res["profile_batch256"] = profile_batches(engine, q_text)
+        res.update(engine_times(engine, lambda s: engine.search_batch_encoded(q_text[s], 10),
+                                texts, batch16=batch16))
+        res["profile_batch256"] = profile_batches(
+            lambda: engine.search_batch_encoded(q_text, 10))
         if idx.storage != "device":
             idx.search(q_text, 10, nprobe=16)
             res["scan_stats_batch256_np16"] = dict(idx.last_scan_stats)
@@ -1092,6 +1114,210 @@ def http_round_trip(engine, texts) -> str:
     return "ok"
 
 
+# -- the stella encoder ---------------------------------------------------------------
+
+# card against CPU at full width on the first layers, f32: the same
+# products summed in another order (cuBLAS, the CPU's BLAS)
+ENC_CPU_LAYERS, ENC_CPU_ATOL, ENC_CPU_MIN_COS = 2, 1e-4, 0.99999
+
+
+class _PipelineEmbedder:
+    """An EmbeddingPipeline as the engine's embedder (the bf16 run)."""
+
+    def __init__(self, pipeline):
+        self.pipeline = pipeline
+
+    def queries(self, texts):
+        return self.pipeline.embed_queries(texts)
+
+
+def encoder_bound(scfg, b: int, t: int):
+    """The least time of one forward of ``b`` rows of ``t`` tokens: every
+    weight read once (embedding rows only as gathered), inputs and
+    outputs once, against 2 flops per matmul weight per token plus the
+    attention products, at the compute dtype's peak.
+    -> (bound_ms, bound_by, ops, bytes)."""
+    c = scfg.backbone
+    elt = torch.finfo(c.dtype).bits // 8
+    per_layer = (c.hidden_size * (c.num_heads + 2 * c.num_kv_heads) * c.head_dim
+                 + c.num_heads * c.head_dim * c.hidden_size
+                 + 3 * c.hidden_size * c.intermediate_size)
+    matmul = c.num_layers * per_layer + c.hidden_size * scfg.mrl_dim
+    biases = c.num_layers * (c.num_heads + 2 * c.num_kv_heads) * c.head_dim + scfg.mrl_dim
+    ops = 2 * matmul * b * t + 4 * b * c.num_heads * t * t * c.head_dim * c.num_layers
+    moved = ((matmul + biases + b * t * c.hidden_size) * elt
+             + (2 * c.num_layers + 1) * c.hidden_size * 4 + b * t * 16 + b * scfg.mrl_dim * 4)
+    ms, by = bound(moved, ops, "bf16" if c.dtype == torch.bfloat16 else "f32")
+    return ms, by, ops, moved
+
+
+def forward_times(pipe, texts) -> dict:
+    """CUDA-event ms of the pipeline's model on the prompted texts as
+    the pipeline pads them (one sequence bucket), at batch 1 and 256."""
+    toks = pipe._tokenize(texts, "s2p_query")
+    t = pipe._bucket_for(max(len(x) for x in toks))
+    ids = torch.full((len(toks), t), pipe.pad_id, dtype=torch.long)
+    mask = torch.zeros((len(toks), t), dtype=torch.long)
+    for r, x in enumerate(toks):
+        ids[r, :len(x)] = torch.tensor(x)
+        mask[r, :len(x)] = 1
+    ids, mask = ids.cuda(), mask.cuda()
+    real = int(mask.sum())
+    out = {"bucket": t, "real_tokens_per_text": real // len(toks)}
+    for b in (1, len(toks)):
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: pipe.model(ids[:b], mask[:b]),  # noqa: B023
+                         reps=20 if b == 1 else 5, warmup=2)
+        bms, by, ops, moved = encoder_bound(pipe.cfg, b, t)
+        out[f"batch{b}"] = {"ms": ms, "tokens_per_s": b * t / ms * 1e3,
+                            "real_tokens_per_s": real * b / len(toks) / ms * 1e3,
+                            "bound_ms": bms, "bound_by": by, "ops": ops, "bytes": moved}
+    return out
+
+
+def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * b).sum(1) / np.maximum(np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1),
+                                       1e-12)
+
+
+def served_equal_direct(engine, idx, texts) -> dict:
+    """The engine's hits for the texts against ``idx.search`` on the
+    embedder's own vectors (the same ids, scores bit for bit), and that
+    kernel path against the plain path on those vectors."""
+    q = engine.embedder.queries(texts)
+    again = engine.embedder.queries(texts)
+    v, p = idx.search(q, 10, nprobe=16)
+    rows = engine.search_batch(texts, 10)
+    want = [[f"W{int(x)}" for x in row if x >= 0] for row in p]
+    got = [[r["id"] for r in row] for row in rows]
+    res = {"encode_bit_equal_twice": bool(np.array_equal(q, again)),
+           "ids_equal": got == want,
+           "scores_bit_equal": [[r["score"] for r in row] for row in rows]
+           == [[float(x) for x, y in zip(vr, pr) if y >= 0] for vr, pr in zip(v, p)]}
+    if not (res["ids_equal"] and res["scores_bit_equal"]):
+        raise AssertionError(f"the engine's stella hits differ from idx.search on the "
+                             f"embedder's vectors: {res}")
+    res["vs_plain"] = hold_against_plain(idx, {"stella": q}, None)
+    return res
+
+
+def encoder_phase(idx, seed: int, by_path: dict, enc_dir: Path) -> dict:
+    """The stella encoder at full width (Qwen2-1.5B: 28 layers, hidden
+    1536, 12 heads, 2 KV heads, FFN 8960, vocab 151,646, MRL 1024) with
+    seeded random weights: written by the port's checkpoint writer,
+    loaded through get_embedder("stella", device="cuda"); the card
+    against the CPU on the first layers; forward times; typed queries
+    served over the loaded index, f32 (as StellaEmbedder serves) and
+    bf16."""
+
+    from abstracts_search_tpu_torch.config import Config
+    from abstracts_search_tpu_torch.models import embed
+    from abstracts_search_tpu_torch.models.embed import EmbeddingPipeline, whitespace_tokenizer
+    from abstracts_search_tpu_torch.models.qwen2 import Qwen2Config
+    from abstracts_search_tpu_torch.models.registry import (StellaEmbedder, get_embedder,
+                                                            save_encoder)
+    from abstracts_search_tpu_torch.models.stella import StellaConfig, StellaEncoder
+    from abstracts_search_tpu_torch.serve.engine import SearchEngine
+
+    res = {}
+    scfg = StellaConfig(backbone=Qwen2Config.stella_1_5b(), mrl_dim=1024)
+    tok = whitespace_tokenizer(scfg.backbone.vocab_size)
+    t = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    model = StellaEncoder(scfg, device="cuda").init_random_(g)
+    shutil.rmtree(enc_dir, ignore_errors=True)
+    save_encoder(enc_dir, scfg, model.state_dict(), f"random-init-seed{seed}")
+    res["checkpoint"] = {"write_seconds": time.perf_counter() - t,
+                         "bytes": sum(f.stat().st_size for f in enc_dir.iterdir())}
+
+    # the entry point users call; the HF tokenizer's place is taken by
+    # the whitespace tokenizer (no transformers on the card's machine)
+    hf_tok = embed.load_hf_tokenizer
+    embed.load_hf_tokenizer = lambda name: tok
+    try:
+        t = time.perf_counter()
+        emb = get_embedder("stella", Config(ckpt_dir=str(enc_dir), embed_dim=1024),
+                           device="cuda")
+        torch.cuda.synchronize()
+        res["checkpoint"]["load_seconds"] = time.perf_counter() - t
+    finally:
+        embed.load_hf_tokenizer = hf_tok
+    if not isinstance(emb, StellaEmbedder):
+        raise AssertionError(f"get_embedder gave {type(emb).__name__}")
+    res["checkpoint"]["device"] = str(emb.pipeline.device)
+    loaded = emb.pipeline.model.state_dict()
+    written = model.state_dict()
+    res["checkpoint"]["bit_equal_after_load"] = all(torch.equal(loaded[k], written[k])
+                                                    for k in written)
+    if not res["checkpoint"]["bit_equal_after_load"]:
+        raise AssertionError("the loaded weights differ from the written ones")
+    del model, written
+    release()
+
+    # the card against the CPU: the full-width model cut to its first
+    # layers, the same weights, f32, on a few prompted texts
+    cut = StellaConfig(backbone=Qwen2Config.stella_1_5b(num_layers=ENC_CPU_LAYERS),
+                       mrl_dim=1024)
+    keep = lambda k: (not k.startswith("backbone.layers.")  # noqa: E731
+                      or int(k.split(".")[2]) < ENC_CPU_LAYERS)
+    cut_sd = {k: v for k, v in loaded.items() if keep(k)}
+    few = SERVE_TEXTS[:6] + ["A", "the the the the the the the the"]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        sd = {k: v.to(dev) for k, v in cut_sd.items()}
+        outs[dev] = EmbeddingPipeline(cut, sd, tok, device=dev).embed_queries(few)
+        del sd
+    err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+    cos = float(cosines(outs["cuda"], outs["cpu"]).min())
+    res["card_vs_cpu"] = {"layers": ENC_CPU_LAYERS, "texts": len(few), "max_abs_err": err,
+                          "min_cosine": cos, "atol": ENC_CPU_ATOL,
+                          "min_cosine_limit": ENC_CPU_MIN_COS}
+    if err > ENC_CPU_ATOL or cos < ENC_CPU_MIN_COS:
+        raise AssertionError(f"the encoder on the card disagrees with the CPU: "
+                             f"{res['card_vs_cpu']}")
+    del cut_sd, outs
+    release()
+
+    bcfg = StellaConfig(backbone=Qwen2Config.stella_1_5b(dtype=torch.bfloat16), mrl_dim=1024)
+    bf16 = EmbeddingPipeline(bcfg, loaded, tok, batch_size=emb.pipeline.batch_size,
+                             batch_buckets=True, device="cuda")
+    del loaded
+    texts = list(SERVE_TEXTS)
+    res["bf16_vs_f32"] = {"layers": scfg.backbone.num_layers, "texts": len(texts),
+                          "min_cosine": float(cosines(bf16.embed_queries(texts),
+                                                      emb.queries(texts)).min())}
+    res["forward_f32"] = forward_times(emb.pipeline, texts)
+    res["forward_bf16"] = forward_times(bf16, texts)
+    res["memory_allocated_gib"] = torch.cuda.memory_allocated() / 2**30
+
+    def serve_both():
+        out = {}
+        for name, e in (("f32", emb), ("bf16", _PipelineEmbedder(bf16))):
+            engine = SearchEngine(idx, _LazyIds(), e, nprobe=16)
+            r = {"embed_batch": e.pipeline.batch_size, "dtype": name,
+                 "served_equal_direct": served_equal_direct(engine, idx, texts),
+                 **engine_times(engine, lambda s: engine.search_batch(texts[s], 10),  # noqa: B023
+                                texts, reps=3, singles=20),
+                 "profile_batch256": profile_batches(
+                     lambda: engine.search_batch(texts, 10), reps=1),  # noqa: B023
+                 "profile_single": profile_batches(
+                     lambda: engine.search(texts[0], 10), reps=5)}  # noqa: B023
+            r["http"] = http_round_trip(engine, texts)
+            t0 = time.perf_counter()
+            r["stages_batch256"] = stage_split({"engine": engine, "texts": texts})
+            r["stages_batch256"]["seconds"] = time.perf_counter() - t0
+            out[name] = r
+            del engine
+            release()
+        return out
+
+    res["serve"] = drive("encoder", serve_both, ("topk", "adc_topk"), by_path)
+    res["launches"] = by_path["encoder"]
+    del emb, bf16
+    release()
+    return res
+
+
 # -- the kernels line -----------------------------------------------------------------
 
 
@@ -1234,8 +1460,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-rows", type=int, default=206_962_688)
     ap.add_argument("--phases",
-                    default="device,build,kernels,flat,index,serve,stages_batch256,hybrid,"
-                            "host,legacy",
+                    default="device,build,kernels,flat,index,serve,stages_batch256,encoder,"
+                            "hybrid,host,legacy",
                     help="comma-separated subset, for development runs")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1294,6 +1520,7 @@ def main() -> int:
         emit({"phase": "flat", "seconds": time.perf_counter() - t, **res})
 
     art = Path(__file__).resolve().parent / "build" / "smoke_index"
+    enc_dir = art.parent / "smoke_encoder"
     try:
         kept = None
         if "index" in phases:
@@ -1312,6 +1539,10 @@ def main() -> int:
                           "seconds": time.perf_counter() - t})
                 kept = keep_results(idx, ctx["q_sets"])
                 del ctx
+                if "encoder" in phases:
+                    t = time.perf_counter()
+                    res = encoder_phase(idx, args.seed, by_path, enc_dir)
+                    emit({"phase": "encoder", **res, "seconds": time.perf_counter() - t})
             del idx
             release()
 
@@ -1376,6 +1607,7 @@ def main() -> int:
                 release()
     finally:
         shutil.rmtree(art, ignore_errors=True)
+        shutil.rmtree(enc_dir, ignore_errors=True)
 
     if set(KERNELS) <= set(rows):
         emit({"kernels": kernels_line(rows, by_path)})

@@ -61,6 +61,26 @@ def test_the_port_imports_without_pyarrow():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_the_port_imports_without_hf_packages():
+    """The card's machine has no transformers, safetensors or
+    huggingface_hub: every module of the port (the encoder's among them)
+    and chip_smoke.py import without them; they are imported only where
+    an HF tokenizer, an HF model or the hub cache is asked for."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('transformers', 'safetensors', 'huggingface_hub'):\n"
+        "    sys.modules[m] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {list(_modules())!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "from abstracts_search_tpu_torch.models.registry import _snapshot_dir\n"
+        "assert _snapshot_dir('NovaSearch/stella_en_1.5B_v5') is None\n"
+    )
+    r = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_no_port_file_imports_the_jax_package():
     for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", *(ROOT / "tools").glob("*.py")]:
         for node in ast.walk(ast.parse(p.read_text())):
@@ -93,6 +113,28 @@ def test_entry_points_refuse_the_cpu_without_asking(tmp_path):
     slots = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         adc_topk(codes, luts, slots, slots, slots, 4, impl="cuda")
+
+
+def test_stella_embedder_refuses_the_cpu_without_asking(tmp_path):
+    from abstracts_search_tpu_torch.config import Config
+    from abstracts_search_tpu_torch.models import embed, registry
+    from abstracts_search_tpu_torch.models.stella import StellaConfig, StellaEncoder
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    scfg = StellaConfig.tiny()
+    weights = StellaEncoder(scfg, device="cpu").init_random_(torch.Generator().manual_seed(0))
+    registry.save_encoder(tmp_path, scfg, weights.state_dict(), "tiny")
+    cfg = Config(ckpt_dir=str(tmp_path), embed_dim=scfg.mrl_dim)
+    # the weights are there: "auto" propagates the missing card too
+    for make in (lambda: registry.StellaEmbedder(cfg),
+                 lambda: registry.get_embedder("stella", cfg),
+                 lambda: registry.get_embedder("auto", cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(embed, "load_hf_tokenizer", lambda name: embed.whitespace_tokenizer(128))
+        assert registry.StellaEmbedder(cfg, device="cpu")(["a b"]).shape == (1, 16)
 
 
 def test_tf32_is_off():
