@@ -25,7 +25,8 @@ def index_from_numpy(meta: dict, centroids, pq_centroids, rotation, csr, *,
     idx = IVFPQIndex(meta["n_lists"], meta["dim"], pq_m=meta["pq_m"],
                      pq_nbits=meta["pq_nbits"], use_opq=meta["use_opq"],
                      seg_size=meta["seg_size"],
-                     spherical=meta.get("spherical", True), device=device, **kw)
+                     spherical=meta.get("spherical", True), device=device,
+                     _legacy_unnormalized=not meta.get("spherical", True), **kw)
     idx.set_params(np.asarray(centroids), np.asarray(pq_centroids),
                    np.asarray(rotation))
     if csr is not None:

@@ -39,6 +39,22 @@ Every storage runs the same scan body (``_scan_slots``). Artifacts are
 the JAX package's (``meta.json``, ``centroids.npy``,
 ``pq_centroids.npy``, ``rotation.npy``, ``lists/``); ``load`` opens them
 and ``save`` writes them.
+
+The build (``train`` -> ``save`` -> ``load`` -> ``fill_stream`` ->
+``save``, as ``astpu index train`` / ``fill`` run it):
+
+- train: OPQ on a sub-sample (``opq.py``), coarse spherical k-means on
+  the rotated sample (``kmeans.py``: kernel 1 at k 1), PQ codebooks on
+  the sub-sample's residuals (``pq.py``). Three k-means modes by sample:
+  staged on the card ("device"), a rotated disk memmap re-read every
+  iteration ("streamed"), or a chunked device source rotated chunk by
+  chunk ("device_streamed", the production build);
+- fill: per chunk, one fused encode on the card (rotate, kernel-1
+  assignment on bf16 operands, residual, PQ argmin, nibble pack), the
+  next chunk dispatched before this one's codes download; codes,
+  assignments and positions collect in RAM or spill to disk, then pack
+  into transposed CSR lists (``lists.py``) written straight to the
+  artifact.
 """
 
 from __future__ import annotations
@@ -57,21 +73,16 @@ from ..device import assert_exact_f32, resolve_device
 from ..ops import _build
 from ..ops.adc import adc_scan, adc_topk
 from ..ops.topk import streaming_topk
-from .lists import CSRLists, load_lists, ragged_ranges, save_lists
+from .kmeans import KMeans, _normalize_rows, _normalize_rows_t, _round_up
+from .lists import (CSRLists, load_lists, pack_lists, pack_lists_external, ragged_ranges,
+                    save_lists)
+from .opq import OPQ, _rotate
+from .pq import ProductQuantizer
 
 logger = logging.getLogger(__name__)
 
 NEG_INF = float("-inf")
 STORAGES = ("device", "host", "hybrid", "auto")
-
-
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
-
-
-def _normalize_rows(x: np.ndarray) -> np.ndarray:
-    n = np.linalg.norm(x, axis=1, keepdims=True)
-    return x / np.maximum(n, 1e-12)
 
 
 def _take(arr: np.ndarray, rows, lo: int, hi: int, out=None):
@@ -192,7 +203,9 @@ class IVFPQIndex:
         scan_impl: str = "auto",
         storage: str = "device",
         hot_budget_bytes: int = 1 << 30,
+        seed: int = 0,
         device=None,
+        _legacy_unnormalized: bool = False,
     ):
         if dim % pq_m:
             raise ValueError(f"dim={dim} not divisible by pq_m={pq_m}")
@@ -221,10 +234,28 @@ class IVFPQIndex:
         self.scan_impl = scan_impl
         self.storage = storage
         self.hot_budget_bytes = hot_budget_bytes
+        self.seed = seed
+        # The ADC scan ranks by inner product, which is not L2 on
+        # unnormalized rows: a new non-spherical index is refused, as in
+        # the JAX package. Artifacts built that way before still open
+        # through load() (``_legacy_unnormalized``), serve-only.
+        if not spherical and not _legacy_unnormalized:
+            raise ValueError(
+                "IVFPQIndex requires normalize/-N (spherical) mode: its "
+                "ADC scan ranks by inner product, which is not L2 on "
+                "unnormalized rows. Pass -N (the reference TRAINFLAGS "
+                "always do) or use IVFFlatIndex for exact plain-L2 search.")
+        self.kmeans = KMeans(n_lists, spherical=True, chunk=chunk, impl=impl, seed=seed,
+                             device=self.device)
+        self.pq = ProductQuantizer(dim, pq_m, pq_nbits, seed=seed, device=self.device)
+        self.opq = (OPQ(dim, pq_m, pq_nbits, seed=seed, device=self.device)
+                    if use_opq else None)
         self.centroids: np.ndarray | None = None      # [n_lists, D]
         self.pq_centroids: np.ndarray | None = None   # [M, ksub, dsub]
         self.rotation = np.eye(dim, dtype=np.float32)
         self.train_stats: dict = {}
+        # seconds and rows of the last fill (see fill_stream)
+        self.fill_stats: dict = {}
         self.packed: CSRLists | None = None
         self.n = 0
         self.last_scan_stats: dict = {}
@@ -234,9 +265,25 @@ class IVFPQIndex:
         """Stored bytes per vector: 4-bit codes are nibble-packed."""
         return self.pq_m // 2 if self.pq_nbits == 4 else self.pq_m
 
+    @property
+    def is_trained(self) -> bool:
+        return self.kmeans.centroids is not None and self.pq.is_trained
+
+    def _refuse_legacy_mutation(self, op: str) -> None:
+        """A legacy non-spherical artifact is serve-only: building new
+        data under its semantics hits the error a new construction gets."""
+        if not self.spherical:
+            raise ValueError(
+                f"cannot {op}() a legacy non-spherical IVFPQIndex: this "
+                "mode is serve-only (search/save). Rebuild with -N, or "
+                "use IVFFlatIndex for exact plain-L2.")
+
     def set_params(self, centroids, pq_centroids, rotation) -> None:
         """Install trained state: centroids [n_lists, D], PQ codebooks
-        [M, ksub, dsub] and the (OPQ) rotation [D, D], all f32."""
+        [M, ksub, dsub] and the (OPQ) rotation [D, D], all f32. The
+        k-means, PQ and OPQ members take the same arrays, and the card
+        keeps the padded f32 and bf16 centroids, the codebooks and the
+        rotation for the probe and the fused encode."""
         c = np.asarray(centroids, np.float32)
         pqc = np.asarray(pq_centroids, np.float32)
         rot = np.asarray(rotation, np.float32)
@@ -248,6 +295,11 @@ class IVFPQIndex:
         if rot.shape != (self.dim, self.dim):
             raise ValueError(f"rotation {rot.shape} != ({self.dim}, {self.dim})")
         self.centroids, self.pq_centroids, self.rotation = c, pqc, rot
+        self.kmeans.centroids = c
+        self.pq.centroids = pqc
+        if self.opq is not None:
+            self.opq.rotation = rot
+            self.opq.pq.centroids = pqc
         k_pad = _round_up(self.n_lists, self.chunk)
         cp = torch.zeros((k_pad, self.dim), dtype=torch.float32, device=self.device)
         cp[: self.n_lists] = torch.from_numpy(c).to(self.device)
@@ -256,6 +308,397 @@ class IVFPQIndex:
         self._cent_bf16 = cp.to(torch.bfloat16)
         self._pq_cent = torch.from_numpy(pqc).to(self.device)
         self._rot = torch.from_numpy(rot).to(self.device)
+
+    # -- train -------------------------------------------------------------------
+
+    # Samples above this byte size train in bounded-memory mode: OPQ/PQ
+    # on an in-RAM sub-sample, k-means on the card or streaming a
+    # rotated disk memmap
+    TRAIN_INRAM_BYTES = 1 << 30
+    # OPQ/PQ sub-sample rows (codebooks need ~hundreds of points per
+    # code, not 10M rows)
+    PQ_TRAIN_ROWS = 1 << 18
+    # rows per kernel-1 call of the residual assignment and the encode
+    ENCODE_ROWS = 1 << 18
+
+    def train(self, sample, *, kmeans_iters: int = 10, opq_iters: int = 3,
+              pq_iters: int = 10, workdir: str | Path | None = None) -> dict:
+        """Train OPQ + coarse k-means + PQ.
+
+        ``sample`` is an [N, D] array, an np.memmap (the production
+        10M-row sample, ~40 GB f32, never lands in host RAM whole), or a
+        chunked device source (``storage/virtual.py``). Small in-RAM
+        samples train whole; the rest take ``_train_big``."""
+        self._refuse_legacy_mutation("train")
+        assert_exact_f32()
+        big = (
+            hasattr(sample, "device_chunk")
+            or isinstance(sample, np.memmap)
+            or sample.nbytes > self.TRAIN_INRAM_BYTES
+        )
+        if big:
+            return self._train_big(sample, kmeans_iters=kmeans_iters, opq_iters=opq_iters,
+                                   pq_iters=pq_iters, workdir=workdir)
+        sample = np.asarray(sample, np.float32)
+        if self.spherical:
+            sample = _normalize_rows(sample)
+        if self.use_opq:
+            self.opq.train(sample, outer_iters=opq_iters, pq_iters=max(4, pq_iters // 2))
+            self.rotation = self.opq.rotation
+        xr = _rotate(sample, self.rotation, self.device)
+        self.kmeans.fit(xr, iters=kmeans_iters)
+        _, assign = self.kmeans.assign(xr)
+        residuals = xr - self.kmeans.centroids[assign]
+        self.pq.train(residuals, iters=pq_iters)
+        self._finish_train_stats()
+        return self.train_stats
+
+    def _train_big(self, sample, *, kmeans_iters, opq_iters, pq_iters, workdir):
+        import shutil
+        import tempfile
+
+        n, dim = sample.shape
+        rng = np.random.default_rng(self.seed)
+        device_src = hasattr(sample, "device_chunk")
+
+        # 1) OPQ on an in-RAM sub-sample, staged on the card once; with
+        # keep_staged, step 4 reuses the staged rows for the residuals
+        sub_idx = np.sort(rng.choice(n, min(self.PQ_TRAIN_ROWS, n), replace=False))
+        if device_src:
+            sub = sample.gather_rows(sub_idx)      # only the sub-sample rows
+        else:
+            sub = np.asarray(sample[sub_idx], np.float32)
+        if self.spherical:
+            sub = _normalize_rows(sub)
+        if self.use_opq:
+            self.opq.train(sub, outer_iters=opq_iters, pq_iters=max(4, pq_iters // 2),
+                           keep_staged=True)
+            self.rotation = self.opq.rotation
+
+        # 2+3) coarse k-means over the full sample, in one of three modes
+        device_fit = (
+            not device_src
+            and not isinstance(sample, np.memmap)
+            and n * dim * 4 <= self.kmeans.DEVICE_BUDGET_BYTES
+        )
+        if device_src:
+            # chunks (re)made on the card each iteration, rotated there;
+            # the accumulators never leave it (kmeans._fit_device_stream)
+            from ..storage.virtual import RotatedDeviceSource
+
+            src = (RotatedDeviceSource(sample, self.rotation, self.device)
+                   if self.use_opq else sample)
+            self.kmeans.fit(src, iters=kmeans_iters)
+            mode = "device_streamed"
+        elif device_fit:
+            self._kmeans_device_resident(sample, kmeans_iters=kmeans_iters)
+            mode = "device"
+        else:
+            # rotate chunk-wise into a disk memmap, re-read every
+            # iteration; host RSS stays O(chunk)
+            owns_workdir = workdir is None
+            workdir = (Path(tempfile.mkdtemp(prefix="astpu_train_")) if owns_workdir
+                       else Path(workdir))
+            workdir.mkdir(parents=True, exist_ok=True)
+            rot_path = workdir / "train_rot.f32"
+            xr_mm = None
+            try:
+                xr_mm = np.memmap(rot_path, dtype=np.float32, mode="w+", shape=(n, dim))
+                rot = torch.from_numpy(self.rotation).to(self.device)
+                step = 1 << 18
+                for lo in range(0, n, step):
+                    xc = np.asarray(sample[lo:lo + step], np.float32)
+                    if self.spherical:  # the rotation is orthogonal: norms persist
+                        xc = _normalize_rows(xc)
+                    xt = torch.from_numpy(np.ascontiguousarray(xc)).to(self.device)
+                    xr_mm[lo:lo + step] = (xt @ rot).cpu().numpy()
+                xr_mm.flush()
+                self.kmeans.fit(xr_mm, iters=kmeans_iters, prenormalized=True)
+            finally:
+                del xr_mm
+                if owns_workdir:
+                    shutil.rmtree(workdir, ignore_errors=True)
+                else:
+                    rot_path.unlink(missing_ok=True)
+            mode = "streamed"
+
+        # 4) PQ on the sub-sample's residuals, computed on the card
+        self._train_pq_residuals(sub, pq_iters=pq_iters)
+
+        self._finish_train_stats()
+        self.train_stats["train_mode"] = mode
+        self.train_stats["pq_train_rows"] = int(len(sub))
+        return self.train_stats
+
+    def _stage_rows(self, x: np.ndarray):
+        """Host rows -> (x [n, D] f32 on the card, n)."""
+        x = np.ascontiguousarray(np.asarray(x, np.float32))
+        return torch.from_numpy(x).to(self.device), len(x)
+
+    def _kmeans_device_resident(self, sample, *, kmeans_iters):
+        """Stage the sample once, normalize and rotate it in place window
+        by window (one live copy of the sample), then Lloyd on it."""
+        x, n = self._stage_rows(sample)
+        rot = torch.from_numpy(self.rotation).to(self.device)
+        for lo in range(0, n, self.ENCODE_ROWS):
+            xs = x[lo:lo + self.ENCODE_ROWS]
+            if self.spherical:
+                xs = _normalize_rows_t(xs)
+            x[lo:lo + self.ENCODE_ROWS] = xs @ rot
+        self.kmeans.fit_staged(x, n, iters=kmeans_iters)
+
+    def _train_pq_residuals(self, sub: np.ndarray, *, pq_iters: int):
+        """Residual PQ training on the card: rotate, coarse-assign
+        (kernel 1 at k 1 on bf16 operands) and subtract, then the PQ
+        Lloyd loop on the residuals. Reuses the rows OPQ staged."""
+        staged = self.opq.staged() if self.use_opq else None
+        xj, nsub = self._stage_rows(sub) if staged is None else staged
+        rot = torch.from_numpy(self.rotation).to(self.device)
+        c_pad = self.kmeans._centroids_padded()
+        c_bf16 = c_pad.to(torch.bfloat16)
+        res = torch.empty_like(xj)
+        for lo in range(0, nsub, self.ENCODE_ROWS):
+            xr = xj[lo:lo + self.ENCODE_ROWS] @ rot
+            _, idx = streaming_topk(xr.to(torch.bfloat16), c_bf16, self.n_lists, 1,
+                                    chunk=self.chunk, impl=self.impl)
+            res[lo:lo + self.ENCODE_ROWS] = xr - c_pad[idx[:, 0].long()]
+        del xj, staged, c_pad, c_bf16
+        if self.use_opq:
+            self.opq.drop_staged()
+        self.pq.train_staged(res.view(nsub, self.pq_m, self.dsub), nsub, iters=pq_iters)
+
+    def _finish_train_stats(self) -> None:
+        self.train_stats = {
+            "kmeans": self.kmeans.stats,
+            "pq": self.pq.stats,
+            "opq": self.opq.stats if self.use_opq else None,
+            "pq_m": self.pq_m,
+            "pq_nbits": self.pq_nbits,
+        }
+        # the trained arrays become the index's own, on the card too
+        self.set_params(self.kmeans.centroids, self.pq.centroids, self.rotation)
+
+    # -- fill --------------------------------------------------------------------
+
+    def _encode_fused(self, x: torch.Tensor):
+        """One pass on the card per window of ``ENCODE_ROWS`` rows: rotate
+        (f32), coarse-assign (kernel 1 at k 1 on bf16 operands), take the
+        residual against the f32 centroid, PQ argmin, and nibble-pack
+        4-bit codes to the storage format. -> (assignments [n] i64, codes
+        [n, code_bytes] u8), on the card."""
+        n = x.shape[0]
+        m = self.pq_m
+        assign = torch.empty(n, dtype=torch.int64, device=self.device)
+        codes = torch.empty((n, self.code_bytes), dtype=torch.uint8, device=self.device)
+        for lo in range(0, n, self.ENCODE_ROWS):
+            xr = x[lo:lo + self.ENCODE_ROWS] @ self._rot
+            _, idx = streaming_topk(xr.to(torch.bfloat16), self._cent_bf16, self.n_lists, 1,
+                                    chunk=self.chunk, impl=self.impl)
+            a = idx[:, 0].long()
+            res = (xr - self._cent[a]).view(-1, m, self.dsub)
+            del xr
+            c = self.pq.assign(res, self._pq_cent).to(torch.uint8)
+            if self.pq_nbits == 4:
+                c3 = c.view(-1, m // 2, 2)
+                c = c3[..., 0] | (c3[..., 1] << 4)
+            assign[lo:lo + len(a)] = a
+            codes[lo:lo + len(a)] = c
+        return assign, codes
+
+    def _encode_dispatch(self, xj: torch.Tensor):
+        """Fused encode of rows already on the card; normalizes there when
+        spherical. Returns tensors on the card, so a caller can dispatch
+        the next chunk before this one's codes download."""
+        x = xj.to(self.device, torch.float32)
+        if self.spherical:
+            x = _normalize_rows_t(x)
+        return self._encode_fused(x)
+
+    def encode(self, vectors, *, batch_rows: int = 1 << 18) -> tuple[np.ndarray, np.ndarray]:
+        """-> (list assignment [N] i64, residual PQ codes [N, code_bytes]
+        u8 in the storage format: 4-bit codes arrive nibble-packed).
+
+        ``vectors`` may be a tensor on the card: then the rows never cross
+        to the host, and only the codes download."""
+        if not self.is_trained:
+            raise RuntimeError("train() before encode()")
+        if isinstance(vectors, torch.Tensor):
+            a, cd = self._encode_dispatch(vectors)
+            return a.cpu().numpy(), cd.cpu().numpy()
+        x = np.asarray(vectors, np.float32)
+        if self.spherical:
+            x = _normalize_rows(x)
+        n = len(x)
+        assign = np.empty(n, np.int64)
+        codes = np.empty((n, self.code_bytes), np.uint8)
+        for lo in range(0, n, batch_rows):
+            xc = torch.from_numpy(np.ascontiguousarray(x[lo:lo + batch_rows])).to(self.device)
+            a, cd = self._encode_fused(xc)
+            assign[lo:lo + len(xc)] = a.cpu().numpy()
+            codes[lo:lo + len(xc)] = cd.cpu().numpy()
+        return assign, codes
+
+    def fill(self, vectors: np.ndarray, positions: np.ndarray | None = None) -> None:
+        if positions is None:
+            positions = np.arange(len(vectors), dtype=np.int64)
+        self.fill_stream([(vectors, positions)])
+
+    def fill_stream(self, chunks, *, lists_dir: str | Path | None = None,
+                    prefetch: int = 2) -> None:
+        """Stream (vectors, positions) chunks: encode each chunk on the
+        card; only the codes survive on the host. Chunks may be numpy
+        arrays or tensors on the card (then the next chunk's encode is
+        dispatched before this one's codes download, and the host spills
+        while the card encodes).
+
+        With ``lists_dir`` set (the production path), per-chunk codes,
+        assignments and positions spill to disk as they stream and the
+        final pack writes the memmap artifact there directly: host RSS
+        stays O(corpus/80). Without it, everything stays in RAM.
+        ``prefetch`` chunks are pulled ahead on a reader thread.
+
+        ``fill_stats`` then holds rows, rows_per_s and seconds of each
+        stage: encode (the card's time in the fused encode, by CUDA
+        events; host time on the CPU), download (waiting for codes to
+        land), spill and pack."""
+        from ..utils import prefetch_iterator
+
+        self._refuse_legacy_mutation("fill")
+        assert_exact_f32()
+        stream = prefetch_iterator(iter(chunks), depth=prefetch)
+        on_card = self.device.type == "cuda"
+        timing = {"encode_s": 0.0, "download_s": 0.0}
+        events = []
+
+        def dispatch(vectors):
+            """Enqueue the encode and the copy of its outputs to pinned
+            host memory; -> (host assignments, host codes, copy event)."""
+            t0 = time.perf_counter()
+            if not on_card:
+                a, cd = self._encode_dispatch(vectors)
+                timing["encode_s"] += time.perf_counter() - t0
+                return a, cd, None
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            a, cd = self._encode_dispatch(vectors)
+            ev[1].record()
+            events.append(ev)
+            ah = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            ch = torch.empty(cd.shape, dtype=cd.dtype, pin_memory=True)
+            ah.copy_(a, non_blocking=True)
+            ch.copy_(cd, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return ah, ch, done
+
+        def drain(p):
+            (ah, ch, done), pos = p
+            t0 = time.perf_counter()
+            if done is not None:
+                done.synchronize()
+            timing["download_s"] += time.perf_counter() - t0
+            return ah.numpy(), ch.numpy(), pos
+
+        def encoded():
+            pending = None
+            for vectors, positions in stream:
+                if isinstance(vectors, torch.Tensor):
+                    cur = (dispatch(vectors), np.asarray(positions))
+                else:
+                    if pending is not None:  # preserve position order
+                        yield drain(pending)
+                        pending = None
+                    t0 = time.perf_counter()
+                    assign, codes = self.encode(vectors)
+                    timing["encode_s"] += time.perf_counter() - t0
+                    yield assign, codes, np.asarray(positions)
+                    continue
+                if pending is not None:
+                    yield drain(pending)
+                pending = cur
+            if pending is not None:
+                yield drain(pending)
+
+        self.fill_encoded_stream(encoded(), lists_dir=lists_dir)
+        if events:
+            timing["encode_s"] += sum(a.elapsed_time(b) for a, b in events) / 1e3
+        self.fill_stats.update(timing)
+
+    def fill_encoded_stream(self, chunks, *, lists_dir: str | Path | None = None) -> None:
+        """Fill from pre-encoded ``(assignments, codes, positions)``
+        chunks: the spill + pack + install tail shared with
+        ``fill_stream``. A filled index is not filled again: refills go
+        through the empty (trained) artifact."""
+        self._refuse_legacy_mutation("fill")
+        if not self.is_trained:
+            raise RuntimeError("train() before fill()")
+        if self.packed is not None:
+            raise RuntimeError(
+                "index already filled; load the empty (trained) artifacts "
+                "and re-fill the full corpus instead of appending")
+        t_start = time.perf_counter()
+        spill_s = 0.0
+        stream = iter(chunks)
+        if lists_dir is None:
+            codes_parts, assign_parts, pos_parts = [], [], []
+            for assign, codes, positions in stream:
+                t0 = time.perf_counter()
+                codes_parts.append(np.asarray(codes, np.uint8))
+                assign_parts.append(np.asarray(assign))
+                pos_parts.append(np.asarray(positions))
+                spill_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            packed = pack_lists(
+                np.concatenate(codes_parts),
+                np.concatenate(pos_parts),
+                np.concatenate(assign_parts),
+                self.n_lists,
+                seg_size=self.seg_size,
+                transposed=True,
+            )
+        else:
+            import shutil
+            import tempfile
+
+            lists_dir = Path(lists_dir)
+            lists_dir.mkdir(parents=True, exist_ok=True)
+            spill = Path(tempfile.mkdtemp(prefix="astpu_fill_", dir=lists_dir.parent))
+            n_total = 0
+            try:
+                with open(spill / "codes.u8", "wb") as cf, \
+                     open(spill / "assign.i32", "wb") as af, \
+                     open(spill / "pos.i64", "wb") as pf:
+                    for assign, codes, positions in stream:
+                        t0 = time.perf_counter()
+                        np.ascontiguousarray(codes, np.uint8).tofile(cf)
+                        np.asarray(assign).astype(np.int32).tofile(af)
+                        np.asarray(positions, np.int64).tofile(pf)
+                        n_total += len(codes)
+                        spill_s += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                codes_mm = np.memmap(spill / "codes.u8", dtype=np.uint8, mode="r",
+                                     shape=(n_total, self.code_bytes))
+                pos_mm = np.memmap(spill / "pos.i64", dtype=np.int64, mode="r",
+                                   shape=(n_total,))
+                # all three spill streams stay memmapped: the pack's count
+                # and routing passes read assignments slab by slab
+                assign = np.memmap(spill / "assign.i32", dtype=np.int32, mode="r",
+                                   shape=(n_total,))
+                packed = pack_lists_external(
+                    codes_mm, pos_mm, assign, self.n_lists,
+                    seg_size=self.seg_size, out_dir=lists_dir, transposed=True,
+                )
+                del codes_mm, pos_mm, assign
+            finally:
+                shutil.rmtree(spill, ignore_errors=True)
+        pack_s = time.perf_counter() - t0
+        seconds = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        self._install(packed)
+        self.fill_stats = {"rows": int(packed.n_rows), "seconds": seconds,
+                           "rows_per_s": packed.n_rows / seconds if seconds else 0.0,
+                           "spill_s": spill_s, "pack_s": pack_s,
+                           "install_s": time.perf_counter() - t0}
 
     # -- install -----------------------------------------------------------------
 
@@ -600,18 +1043,26 @@ class IVFPQIndex:
             "seg_size": self.seg_size,
             "spherical": self.spherical,
             "n": self.n,
-            "train_stats": self.train_stats,
+            "train_stats": _json_safe(self.train_stats),
         }
         (d / "meta.json").write_text(json.dumps(meta, indent=2))
         if include_lists and self.packed is not None:
-            save_lists(self.packed, d / "lists")
+            target = d / "lists"
+            # when fill_stream(lists_dir=...) already wrote the memmap
+            # artifact in place, saving again would read and write the
+            # same file: skip the copy
+            existing = getattr(self.packed.data, "filename", None)
+            if existing is not None and Path(existing).resolve().parent == target.resolve():
+                return
+            save_lists(self.packed, target)
 
     @classmethod
     def load(cls, directory: str | Path, *, device=None, **kw) -> "IVFPQIndex":
         """Open JAX- or port-written artifacts on ``device`` (default:
         the CUDA card). ``kw`` goes to the constructor (``storage``,
         ``hot_budget_bytes``, ``impl``, ...). Resident lists stream from
-        the memmap to the device."""
+        the memmap to the device. An empty (trained, unfilled) artifact
+        opens ready for ``fill_stream``."""
         d = Path(directory)
         meta = json.loads((d / "meta.json").read_text())
         if not meta["spherical"]:
@@ -620,10 +1071,25 @@ class IVFPQIndex:
         idx = cls(meta["n_lists"], meta["dim"], pq_m=meta["pq_m"],
                   pq_nbits=meta["pq_nbits"], use_opq=meta["use_opq"],
                   seg_size=meta["seg_size"], spherical=meta["spherical"],
-                  device=device, **kw)
+                  device=device, _legacy_unnormalized=not meta["spherical"], **kw)
         idx.set_params(np.load(d / "centroids.npy"), np.load(d / "pq_centroids.npy"),
                        np.load(d / "rotation.npy"))
         idx.train_stats = meta.get("train_stats", {})
         if (d / "lists").is_dir():
             idx._install(load_lists(d / "lists", mmap=True))
         return idx
+
+
+def _json_safe(obj):
+    """numpy scalars and arrays inside train stats -> JSON types."""
+    if isinstance(obj, dict):
+        return {k: _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    return obj

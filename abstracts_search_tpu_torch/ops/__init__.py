@@ -1,7 +1,10 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 - ``topk`` — streaming top-k of q . x^T, exact and fast mode (the IVF
-  probe, flat search).
+  probe, flat search). At k 1 it is also the index build's assignment:
+  k-means (``index/kmeans.py``), the residual assignment of PQ training
+  and the fused encode of the fill (``index/ivfpq.py``); no separate
+  k-means kernel exists.
 - ``adc``  — IVF-PQ ADC scans: fused scan + per-slot top-kp over
   transposed lists, and raw scans over either layout.
 

@@ -26,6 +26,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
           against its plain version, QPS by CUDA events over chained
           calls, the library yardstick torch.topk(q @ x.T, k), and
           FlatIndex (exact kernel) against its plain route.
+  index_build
+          the index build as users run it (train -> save -> load ->
+          fill_stream -> save) at the production geometry (65,536
+          lists, OPQ, PQ128x4, SEG 256, D 1024) on a seeded clustered
+          corpus made on the card chunk by chunk (131,072 rows): train
+          on 10,092,544 rows, device-streamed k-means (kernel 1 at k 1),
+          10 Lloyd iterations, OPQ and residual PQ on a 262,144-row
+          sub-sample; fill 20,971,520 rows (CUDA-tensor chunks, spill,
+          the external distribution-sort pack into the artifact). Prints
+          seconds, iterations, objective, empty splits, mse, kernel-1
+          launches and peak card memory per stage, fill rows/s and its
+          stages, the artifact's bytes. Then kernel 1 at the build shape
+          (Q 131,072 x 65,536 x 1024 bf16, k 1) against its plain
+          version on 16,384-row sub-windows, timed beside its bound, the
+          plain version and torch.max(q @ x.T, 1); the kernel route
+          against the plain route on a training window and a fill
+          chunk (differences only at counted near-ties); the reopened
+          filled index against its plain path; recall@10 at nprobe 16
+          of 256 perturbed corpus rows against an exact top-10 streamed
+          over the regenerated chunks (fails below 0.5).
   index   seeded IVF-PQ artifacts at the production geometry (D 1024,
           65,536 lists, OPQ rotation, PQ128x4 nibble-packed transposed,
           SEG 256, 206,962,688 rows, lognormal-skewed list sizes), written
@@ -67,8 +87,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
           row-major PQ64x8 artifact (4,096 lists, 2,097,152 rows, raw scan
           kernel for byte codes) held against its plain path.
 
-Each path (serve, flat, encoder, hybrid, host, legacy, legacy_pq8,
-host_pq8)
+Each path (flat, index_build, serve, encoder, hybrid, host, legacy,
+legacy_pq8, host_pq8)
 runs with every launch count set to 0
 just before it and read just after, and fails if one of its kernels
 never launched. Then a ``{"kernels": [...]}`` line with one row per TPU
@@ -160,22 +180,28 @@ def device_ms(fn, names, reps: int = 10) -> float:
     device time of the kernels whose names hold one of ``names``, over
     ``reps`` calls. A profiler run can miss its first launches, so each
     kernel's mean span counts (a call launches each of its kernels
-    once)."""
+    once); a run that saw none of them is repeated, up to three runs."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names):
-            spans.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
-    if not spans:
-        raise AssertionError(f"the profiler saw no kernel named {names}")
-    return sum(statistics.mean(v) for v in spans.values()) / 1e3
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = {}
+        cuda_events = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+        for e in cuda_events:
+            if any(n in e.name for n in names):
+                spans.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+        if spans:
+            return sum(statistics.mean(v) for v in spans.values()) / 1e3
+        seen.append((len(cuda_events), sorted({e.name[:60] for e in cuda_events})[:5]))
+    raise AssertionError(f"the profiler saw no kernel named {names} in three runs "
+                         f"(device events, names seen: {seen})")
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -640,6 +666,317 @@ def flat_phase(seed: int, by_path: dict):
     del x, flat, qs, got, ref
     release()
     return res, rows
+
+
+# -- the index build (train, fill) at the production geometry ------------------------
+
+# the production build: a 10,092,544-row training sample (77 chunks of
+# 131,072, the JAX package's device-streamed train), then the fill; the
+# fill is cut to 20,971,520 of 206,962,688 rows for the smoke's time
+BUILD_CHUNK = 131_072
+BUILD_TRAIN_ROWS = 77 * BUILD_CHUNK
+BUILD_FILL_ROWS = 160 * BUILD_CHUNK
+BUILD_KMEANS_ITERS = 10
+BUILD_FULL_ROWS = 206_962_688
+# the plain top-k and the library yardstick at the build shape run on
+# sub-windows of this many rows (2 GiB of bf16 scores each)
+BUILD_SUB_ROWS = 16_384
+# recall@10 at nprobe 16 of perturbed corpus rows: a broken train or
+# pack gives close to 0
+BUILD_MIN_RECALL = 0.5
+# the phase's device (a CPU rehearsal at small sizes sets "cpu")
+BUILD_DEVICE = "cuda"
+
+
+class ClusteredCorpus:
+    """A seeded clustered mixture made on the card chunk by chunk, the
+    shape of the JAX package's synthetic corpus (``storage/virtual.py``):
+    4,096 cluster centers in a 64-dimensional latent space behind a fixed
+    orthonormal basis, zipf-1.1 cluster masses, micro-groups of 16 rows
+    around an anchor (10 core rows at total jitter 0.05, 6 outer at 0.5),
+    unit rows. A chunk depends only on (seed, chunk index): a chunked
+    device source for ``IVFPQIndex.train`` (``device_chunk``,
+    ``gather_rows``)."""
+
+    prenormalized = True
+    N_CLUSTERS, D_INT, ZIPF, NOISE = 4096, 64, 1.1, 0.5
+    GROUP, CORE, CORE_NOISE, OUTER_NOISE = 16, 10, 0.05, 0.5
+
+    def __init__(self, n_rows: int, seed: int, chunk_rows: int | None = None):
+        chunk_rows = chunk_rows or BUILD_CHUNK
+        rng = np.random.default_rng(seed)
+        basis, _ = np.linalg.qr(rng.standard_normal((DIM, self.D_INT)))
+        centers = rng.standard_normal((self.N_CLUSTERS, self.D_INT))
+        p = 1.0 / np.arange(1, self.N_CLUSTERS + 1) ** self.ZIPF
+        self.basis = torch.from_numpy(basis.astype(np.float32)).to(BUILD_DEVICE)
+        self.centers = torch.from_numpy(centers.astype(np.float32)).to(BUILD_DEVICE)
+        self.p = torch.from_numpy((p / p.sum()).astype(np.float32)).to(BUILD_DEVICE)
+        sig = np.full(self.GROUP, self.CORE_NOISE, np.float32)
+        sig[self.CORE:] = self.OUTER_NOISE
+        self.sig = torch.from_numpy(sig / np.sqrt(DIM)).to(BUILD_DEVICE)
+        self.seed = seed
+        self.chunk_rows = chunk_rows
+        self.num_chunks = n_rows // chunk_rows
+        self.shape = (self.num_chunks * chunk_rows, DIM)
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def device_chunk(self, j: int) -> torch.Tensor:
+        g = torch.Generator(device=BUILD_DEVICE).manual_seed(self.seed * 1_000_003 + int(j))
+        mg = self.chunk_rows // self.GROUP
+        labels = torch.multinomial(self.p, mg, replacement=True, generator=g)
+        low = self.centers[labels] + self.NOISE * torch.randn(
+            (mg, self.D_INT), device=BUILD_DEVICE, generator=g)
+        anchors = torch.nn.functional.normalize(low @ self.basis.T, dim=1)
+        rows = anchors.repeat_interleave(self.GROUP, 0)
+        rows += self.sig.repeat(mg)[:, None] * torch.randn(
+            (mg * self.GROUP, DIM), device=BUILD_DEVICE, generator=g)
+        return torch.nn.functional.normalize(rows, dim=1)
+
+    def gather_rows(self, idx) -> np.ndarray:
+        from abstracts_search_tpu_torch.storage.virtual import _gather_from_chunks
+
+        return _gather_from_chunks(self.device_chunk, self.chunk_rows,
+                                   np.asarray(idx, np.int64), DIM)
+
+
+def timed_stage(stages: dict, name: str, fn):
+    """Wrap ``fn`` so each call records its seconds, kernel-1 launches
+    and the card's peak memory under ``stages[name]``."""
+    from abstracts_search_tpu_torch.ops import topk
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0, t = topk.launches, time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        stages[name] = {"seconds": time.perf_counter() - t,
+                        "topk_launches": topk.launches - n0,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        return out
+
+    return run
+
+
+def assign_near_ties(x, c_bf16, got, ref, tol=1e-5):
+    """Rows whose two assignments differ, each checked to be a near-tie:
+    the two centroids' exact (f64) scores on the bf16 operands within
+    ``tol``. -> (rows differing, of which not near-ties)."""
+    rows = (got != ref).nonzero().flatten()
+    if not len(rows):
+        return 0, 0
+    xr = x[rows].to(torch.bfloat16).double()
+    gap = ((xr * c_bf16[got[rows]].double()).sum(1)
+           - (xr * c_bf16[ref[rows]].double()).sum(1)).abs()
+    return len(rows), int((gap > tol).sum())
+
+
+def build_kernel_row(idx, corpus, seed: int) -> dict:
+    """Kernel 1 at the build's shape: Q 131,072 rotated corpus rows
+    against the 65,536 padded bf16 centroids, k 1. Held against its
+    plain version on a 16,384-row sub-window; the plain version and the
+    library yardstick torch.max(q @ x.T, 1) timed over the window's
+    sub-windows; the merge pass's device time split out."""
+    from abstracts_search_tpu_torch.ops import topk
+
+    q = (corpus.device_chunk(3) @ idx._rot).to(torch.bfloat16)
+    x = idx._cent_bf16
+    qn = q.shape[0]
+    run = lambda impl, qq=q: topk.streaming_topk(qq, x, N_LISTS, 1, impl=impl)  # noqa: E731
+    sub = q[:BUILD_SUB_ROWS]
+    got, ref = run("cuda", sub), run("torch", sub)
+    err, bad, ties = compare_topk(sub, x, 1, got, ref, 1e-5)
+    if bad or err > 1e-5:
+        raise AssertionError(f"kernel 1 at k 1 disagrees at the build shape: {bad} rows, "
+                             f"err {err}")
+    full_kernel = run("cuda")
+    per_sub = [run("torch", q[lo:lo + BUILD_SUB_ROWS]) for lo in (0, qn - BUILD_SUB_ROWS)]
+    for (pv, pi), lo in zip(per_sub, (0, qn - BUILD_SUB_ROWS)):
+        e2, b2, _ = compare_topk(q[lo:lo + BUILD_SUB_ROWS], x, 1,
+                                 tuple(t[lo:lo + BUILD_SUB_ROWS] for t in full_kernel),
+                                 (pv, pi), 1e-5)
+        if b2 or e2 > 1e-5:
+            raise AssertionError("kernel 1 over the whole window disagrees on a sub-window")
+
+    def plain_window():
+        for lo in range(0, qn, BUILD_SUB_ROWS):
+            run("torch", q[lo:lo + BUILD_SUB_ROWS])
+
+    def library_window():
+        for lo in range(0, qn, BUILD_SUB_ROWS):
+            torch.max(q[lo:lo + BUILD_SUB_ROWS] @ x[:N_LISTS].T, 1)
+
+    b, by = bound(q.numel() * 2 + N_LISTS * DIM * 2 + qn * 8,
+                  2 * qn * N_LISTS * DIM, "bf16")
+    dev = device_ms(lambda: run("cuda"), DEVICE_NAMES["topk"], reps=3)
+    merge = device_ms(lambda: run("cuda"), ("topk_merge_kernel",), reps=3)
+    plan = topk._launch_plan(qn, N_LISTS, 1, torch.bfloat16, 0)
+    return {"shape": [qn, N_LISTS, DIM, 1], "dtype": "bf16",
+            "plan": {"cfg": plan.cfg, "queries_per_block": plan.qb,
+                     "query_tiles": -(-qn // plan.qb), "n_ranges": plan.n_ranges},
+            "max_abs_err": err, "index_mismatches": bad, "near_ties": ties,
+            "held_rows": BUILD_SUB_ROWS,
+            "ms": cuda_ms(lambda: run("cuda"), reps=5),
+            "device_ms": dev, "merge_pass_device_ms": merge,
+            "merge_pass_share": merge / dev,
+            "plain_ms": cuda_ms(plain_window, reps=1, warmup=1),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": cuda_ms(library_window, reps=3, warmup=1),
+            "library": f"torch.max(q @ x.T, 1) over {BUILD_SUB_ROWS}-row sub-windows"}
+
+
+def build_checks(filled: Path, corpus, fill_idx, seed: int) -> dict:
+    """The kernel route against the plain route on a training window and
+    on a fill chunk (differences only at counted near-ties), the reopened
+    filled index held against its plain path at nprobe 2 and 16 (kernels
+    1 and 3), and recall@10 at nprobe 16 of 256 perturbed corpus rows
+    against an exact top-10 streamed over the regenerated chunks."""
+    from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
+    from abstracts_search_tpu_torch.ops import topk
+    from abstracts_search_tpu_torch.parallel.topk_merge import merge_topk
+
+    res = {}
+    # one training window: the device-streamed k-means' own step
+    km = fill_idx.kmeans
+    c_pad = km._centroids_padded()
+    xw = (corpus.device_chunk(5) @ fill_idx._rot)[:BUILD_SUB_ROWS]
+    got = km._top1(xw, c_pad)[1]
+    km.impl = "torch"
+    ref = km._top1(xw, c_pad)[1]
+    km.impl = "auto"
+    n_diff, bad = assign_near_ties(xw, c_pad.to(torch.bfloat16), got, ref)
+    if bad:
+        raise AssertionError(f"k-means assignment: {bad} rows differ beyond near-ties")
+    res["train_window"] = {"rows": BUILD_SUB_ROWS, "assignments_differing_at_near_ties":
+                           n_diff}
+    # one fill chunk through the fused encode, both routes
+    chunk = corpus.device_chunk(7)
+    out = {}
+    for impl in ("cuda", "torch"):
+        fill_idx.impl = impl
+        out[impl] = fill_idx._encode_dispatch(chunk)
+    fill_idx.impl = "auto"
+    (ka, kc), (pa, pc) = out["cuda"], out["torch"]
+    xr = torch.nn.functional.normalize(chunk, dim=1) @ fill_idx._rot
+    n_diff, bad = assign_near_ties(xr, fill_idx._cent_bf16, ka, pa)
+    same = ka == pa
+    if bad or not torch.equal(kc[same], pc[same]):
+        raise AssertionError(f"fused encode: {bad} assignments beyond near-ties, codes "
+                             f"equal on one list: {torch.equal(kc[same], pc[same])}")
+    res["fill_chunk"] = {"rows": BUILD_CHUNK, "assignments_differing_at_near_ties": n_diff,
+                         "codes_differing_on_equal_assignment": 0}
+    del out, ka, kc, pa, pc, xr, chunk
+
+    idx = IVFPQIndex.load(filled, device=BUILD_DEVICE)
+    # 256 perturbed corpus rows: a corpus row plus core-level jitter
+    rng = np.random.default_rng(seed + 5)
+    own = np.sort(rng.choice(idx.n, 256, replace=False))
+    base = corpus.gather_rows(own)
+    q = base + (ClusteredCorpus.CORE_NOISE / np.sqrt(DIM)) * rng.standard_normal(
+        base.shape).astype(np.float32)
+    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    res["vs_plain"] = hold_against_plain(idx, {"perturbed": q}, None)
+    qt = torch.from_numpy(q).to(BUILD_DEVICE)
+    t = time.perf_counter()
+    best_v = torch.full((256, 10), float("-inf"), device=BUILD_DEVICE)
+    best_i = torch.zeros((256, 10), dtype=torch.int64, device=BUILD_DEVICE)
+    for c in range(idx.n // BUILD_CHUNK):
+        v, i = topk.streaming_topk(qt, corpus.device_chunk(c), BUILD_CHUNK, 10,
+                                   impl="cuda")
+        best_v, best_i = merge_topk(torch.stack([best_v, v]),
+                                    torch.stack([best_i, i.long() + c * BUILD_CHUNK]), 10)
+    exact = best_i.cpu().numpy()
+    _, got = idx.search(q, 10, nprobe=16)
+    recall = float(np.mean([len(set(got[r]) & set(exact[r])) / 10 for r in range(256)]))
+    res["recall_at_10_np16"] = recall
+    res["self_in_exact_top10"] = float(np.mean([own[r] in exact[r] for r in range(256)]))
+    res["exact_top10_seconds"] = time.perf_counter() - t
+    del idx
+    release()
+    if recall < BUILD_MIN_RECALL:
+        raise AssertionError(f"recall@10 {recall} < {BUILD_MIN_RECALL}")
+    return res
+
+
+def artifact_bytes(d: Path) -> int:
+    return sum(p.stat().st_size for p in d.rglob("*") if p.is_file())
+
+
+def index_build_phase(seed: int, by_path: dict, out: Path):
+    """train -> save (empty) -> load -> fill_stream -> save, at the
+    production geometry, on a corpus made on the card. -> (phase result,
+    the kernel-1 row at the build shape)."""
+    from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
+
+    shutil.rmtree(out, ignore_errors=True)
+    empty, filled = out / "empty", out / "filled"
+    train_src = ClusteredCorpus(BUILD_TRAIN_ROWS, seed)
+    fill_src = ClusteredCorpus(BUILD_FILL_ROWS, seed)
+    idx = IVFPQIndex(N_LISTS, DIM, pq_m=PQ_M, pq_nbits=PQ_NBITS, use_opq=True, seg_size=SEG,
+                     seed=seed, device=BUILD_DEVICE)
+    stages = {}
+    idx.opq.train = timed_stage(stages, "opq", idx.opq.train)
+    idx.kmeans.fit = timed_stage(stages, "kmeans", idx.kmeans.fit)
+    idx._train_pq_residuals = timed_stage(stages, "pq_residuals", idx._train_pq_residuals)
+
+    def path():
+        t = time.perf_counter()
+        idx.train(train_src, kmeans_iters=BUILD_KMEANS_ITERS)
+        train_s = time.perf_counter() - t
+        idx.save(empty, include_lists=False)
+        t = time.perf_counter()
+        fill_idx = IVFPQIndex.load(empty, device=BUILD_DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        fill_idx.fill_stream(((fill_src.device_chunk(c),
+                               np.arange(c * BUILD_CHUNK, (c + 1) * BUILD_CHUNK))
+                              for c in range(fill_src.num_chunks)),
+                             lists_dir=filled / "lists")
+        fill_peak = torch.cuda.max_memory_allocated() / 2**30
+        fill_idx.save(filled)
+        return train_s, time.perf_counter() - t, fill_peak, fill_idx
+
+    train_s, fill_s, fill_peak, fill_idx = drive("index_build", path, ("topk",), by_path)
+    ts = idx.train_stats
+    km = ts["kmeans"]
+    res = {
+        "config": {"n_lists": N_LISTS, "dim": DIM, "pq": f"PQ{PQ_M}x{PQ_NBITS}", "opq": True,
+                   "seg_size": SEG, "train_rows": BUILD_TRAIN_ROWS,
+                   "fill_rows": BUILD_FILL_ROWS, "chunk_rows": BUILD_CHUNK,
+                   "kmeans_iters": BUILD_KMEANS_ITERS},
+        "reduced": [f"fill {BUILD_FILL_ROWS} of {BUILD_FULL_ROWS} rows, for the smoke's time",
+                    "a synthetic clustered corpus made on the card: real embeddings are "
+                    "not in the repository"],
+        "train": {"seconds": train_s, "train_mode": ts["train_mode"],
+                  "pq_train_rows": ts["pq_train_rows"], "stages": stages,
+                  "kmeans_iters_run": km["iters_run"], "kmeans_objective": km["objective"],
+                  "kmeans_empty_splits": km["empty_splits"],
+                  "opq_mse": ts["opq"]["mse"], "pq_mse": ts["pq"]["mse"]},
+        "fill": {"load_fill_save_seconds": fill_s, **fill_idx.fill_stats, "peak_gib": fill_peak,
+                 "artifact_bytes": artifact_bytes(filled), "n_segs": fill_idx.packed.n_segs,
+                 "external_pack": "distribution sort"
+                 if fill_idx.n * fill_idx.code_bytes > (1 << 30) else "sorted scatter"},
+        "launches": by_path["index_build"],
+    }
+    if fill_idx.n != BUILD_FILL_ROWS or not np.isfinite(km["objective"]).all():
+        raise AssertionError(f"the build filled {fill_idx.n} rows")
+    # two runs from one seed give bit-identical centroid sums
+    x = ClusteredCorpus(BUILD_CHUNK, seed).device_chunk(0)
+    a = torch.randint(0, N_LISTS, (BUILD_CHUNK,), device=BUILD_DEVICE)
+    from abstracts_search_tpu_torch.index.kmeans import segment_sum
+
+    res["segment_sums_bit_identical"] = bool(torch.equal(segment_sum(x, a, N_LISTS),
+                                                         segment_sum(x, a, N_LISTS)))
+    if not res["segment_sums_bit_identical"]:
+        raise AssertionError("the centroid sums are not deterministic")
+    del x, a
+    row = build_kernel_row(fill_idx, train_src, seed)
+    res["kernel_1_build_shape"] = row
+    res["checks"] = build_checks(filled, fill_src, fill_idx, seed)
+    del fill_idx, idx
+    release()
+    return res, row
 
 
 # -- index artifacts ----------------------------------------------------------------
@@ -1460,8 +1797,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-rows", type=int, default=206_962_688)
     ap.add_argument("--phases",
-                    default="device,build,kernels,flat,index,serve,stages_batch256,encoder,"
-                            "hybrid,host,legacy",
+                    default="device,build,kernels,flat,index_build,index,serve,"
+                            "stages_batch256,encoder,hybrid,host,legacy",
                     help="comma-separated subset, for development runs")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1519,6 +1856,16 @@ def main() -> int:
         rows["topk_fast"] = flat_rows["topk_fast"]
         emit({"phase": "flat", "seconds": time.perf_counter() - t, **res})
 
+    build_row = None
+    if "index_build" in phases:
+        t = time.perf_counter()
+        build_dir = Path(__file__).resolve().parent / "build" / "smoke_build"
+        try:
+            res, build_row = index_build_phase(args.seed, by_path, build_dir)
+        finally:
+            shutil.rmtree(build_dir, ignore_errors=True)
+        emit({"phase": "index_build", **res, "seconds": time.perf_counter() - t})
+
     art = Path(__file__).resolve().parent / "build" / "smoke_index"
     enc_dir = art.parent / "smoke_encoder"
     try:
@@ -1532,6 +1879,8 @@ def main() -> int:
                 rows.update(probe_and_scan_rows(idx, ctx["q_sets"]["text"], 16, 10))
                 if "flat" in phases:
                     rows["topk"]["flat"] = flat_rows["topk_flat"]
+                if build_row is not None:
+                    rows["topk"]["index_build"] = build_row
                 if "stages_batch256" in phases:
                     t = time.perf_counter()
                     res = stage_split(ctx)
@@ -1611,7 +1960,8 @@ def main() -> int:
 
     if set(KERNELS) <= set(rows):
         emit({"kernels": kernels_line(rows, by_path)})
-    elif {"kernels", "flat", "index", "serve", "hybrid", "host", "legacy"} <= phases:
+    elif {"kernels", "flat", "index_build", "index", "serve", "hybrid", "host",
+          "legacy"} <= phases:
         raise AssertionError(f"kernel rows missing: {set(KERNELS) - set(rows)}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

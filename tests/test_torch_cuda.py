@@ -319,3 +319,90 @@ def test_tiny_encoder_on_the_card_matches_the_cpu(cuda, dtype, atol, causal):
     cos = (outs[0] * outs[1]).sum(1)
     assert cos.min() >= 0.999
     assert_exact_f32()
+
+
+# -- the index build: kernel 1 at k 1 -------------------------------------------------
+
+
+@pytest.mark.parametrize("qn", [1000, 70_000])
+def test_topk_kernel_at_k1_bit_for_bit(cuda, qn):
+    """The k-means assignment's shape: k 1 on bf16 operands across many
+    256-query tiles. Small integers and 64 distinct rows repeated: every
+    sum is exact, so values and rows (ties to the lowest) must be equal."""
+    g = torch.Generator(device=cuda).manual_seed(qn)
+    q = torch.randint(-3, 4, (qn, 64), device=cuda, generator=g).to(torch.bfloat16)
+    x = torch.randint(-3, 4, (64, 64), device=cuda, generator=g)[
+        torch.randint(0, 64, (4096,), device=cuda, generator=g)].to(torch.bfloat16)
+    kv, ki = topk.streaming_topk(q, x, 4000, 1, chunk=1024, impl="cuda")
+    pv, pi = topk.streaming_topk(q, x, 4000, 1, chunk=1024, impl="torch")
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+def test_plain_l2_kmeans_past_the_fma_grid_limit(cuda):
+    """Plain-L2 k-means rides the kernel's f32 FMA route, whose grid
+    holds at most 2,097,120 queries a call; fit_staged over 2,200,000
+    rows windows its calls and must assign as the plain route. Small
+    integers keep every score and the first update's sums exact, so the
+    two routes' centroids must be equal bit for bit."""
+    from abstracts_search_tpu_torch.index.kmeans import KMeans
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randint(-3, 4, (2_200_000, 16), device=cuda, generator=g).float()
+    cents = {}
+    for impl in ("cuda", "torch"):
+        km = KMeans(256, spherical=False, impl=impl, seed=0, device=cuda)
+        km.fit_staged(x, iters=1)
+        cents[impl] = km.centroids
+    np.testing.assert_array_equal(cents["cuda"], cents["torch"])
+    # and row by row at the (integer) init rows, on the last window
+    init_idx = np.sort(np.random.default_rng(0).choice(len(x), 256, replace=False))
+    top1 = {}
+    for impl in ("cuda", "torch"):
+        km = KMeans(256, spherical=False, impl=impl, device=cuda)
+        km.centroids = x[torch.from_numpy(init_idx).to(cuda)].cpu().numpy()
+        top1[impl] = km._top1(x[-262_144:], km._centroids_padded())
+    assert torch.equal(top1["cuda"][0], top1["torch"][0])
+    assert torch.equal(top1["cuda"][1], top1["torch"][1])
+
+
+def test_segment_sums_are_deterministic(cuda):
+    """Two runs of the centroid sums on one input are bit-identical."""
+    from abstracts_search_tpu_torch.index.kmeans import segment_sum
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((131_072, 1024), device=cuda, generator=g)
+    a = torch.randint(0, 4096, (131_072,), device=cuda, generator=g)
+    s1, s2 = segment_sum(x, a, 65_536), segment_sum(x, a, 65_536)
+    assert torch.equal(s1, s2)
+    ref = torch.zeros((65_536, 1024), dtype=torch.float64, device=cuda)
+    ref.index_add_(0, a, x.double())
+    torch.testing.assert_close(s1, ref.float(), rtol=1e-5, atol=1e-4)
+
+
+def test_fused_encode_kernel_route_matches_plain(cuda):
+    """The fill's fused encode with kernel 1 against the plain top-k:
+    assignments equal except where two centroids score within 1e-5 on the
+    bf16 operands; rows on one list get the same codes (the rest of the
+    encode is one code path)."""
+    from abstracts_search_tpu_torch.index import IVFPQIndex
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    n_lists, dim, m = 1024, 64, 16
+    norm = torch.nn.functional.normalize
+    idx = IVFPQIndex(n_lists, dim, pq_m=m, pq_nbits=4, seg_size=64, device=cuda)
+    rot, _ = torch.linalg.qr(torch.randn((dim, dim), device=cuda, generator=g))
+    idx.set_params(norm(torch.randn((n_lists, dim), device=cuda, generator=g), dim=1).cpu(),
+                   0.05 * torch.randn((m, 16, dim // m), device=cuda, generator=g).cpu(),
+                   rot.cpu())
+    x = torch.randn((70_000, dim), device=cuda, generator=g)
+    out = {}
+    for impl in ("cuda", "torch"):
+        idx.impl = impl
+        out[impl] = idx._encode_dispatch(x)
+    (ka, kc), (pa, pc) = out["cuda"], out["torch"]
+    differ = ka != pa
+    xr = (norm(x, dim=1) @ idx._rot).to(torch.bfloat16).double()
+    cb = idx._cent_bf16.double()
+    gap = ((xr * cb[ka]).sum(1) - (xr * cb[pa]).sum(1)).abs()
+    assert bool((gap[differ] <= 1e-5).all()) and int(differ.sum()) < 20
+    assert torch.equal(kc[~differ], pc[~differ])
