@@ -70,9 +70,10 @@ import numpy as np
 import torch
 
 from ..device import assert_exact_f32, resolve_device
-from ..ops import _build
+from ..ops import _build, launch_counts
 from ..ops.adc import adc_scan, adc_topk
 from ..ops.topk import streaming_topk
+from ..utils.trace import StageTimer
 from .kmeans import KMeans, _normalize_rows, _normalize_rows_t, _round_up
 from .lists import (CSRLists, load_lists, pack_lists, pack_lists_external, ragged_ranges,
                     save_lists)
@@ -328,32 +329,38 @@ class IVFPQIndex:
         ``sample`` is an [N, D] array, an np.memmap (the production
         10M-row sample, ~40 GB f32, never lands in host RAM whole), or a
         chunked device source (``storage/virtual.py``). Small in-RAM
-        samples train whole; the rest take ``_train_big``."""
+        samples train whole; the rest take ``_train_big``. ``train_stats``
+        then holds each step's seconds and kernel launches under
+        ``stages`` (``opq``, ``kmeans``, ``pq_residuals``)."""
         self._refuse_legacy_mutation("train")
         assert_exact_f32()
+        timer = StageTimer(counters=launch_counts)
         big = (
             hasattr(sample, "device_chunk")
             or isinstance(sample, np.memmap)
             or sample.nbytes > self.TRAIN_INRAM_BYTES
         )
         if big:
-            return self._train_big(sample, kmeans_iters=kmeans_iters, opq_iters=opq_iters,
-                                   pq_iters=pq_iters, workdir=workdir)
+            return self._train_big(sample, timer, kmeans_iters=kmeans_iters,
+                                   opq_iters=opq_iters, pq_iters=pq_iters, workdir=workdir)
         sample = np.asarray(sample, np.float32)
         if self.spherical:
             sample = _normalize_rows(sample)
         if self.use_opq:
-            self.opq.train(sample, outer_iters=opq_iters, pq_iters=max(4, pq_iters // 2))
+            with timer.stage("opq"):
+                self.opq.train(sample, outer_iters=opq_iters, pq_iters=max(4, pq_iters // 2))
             self.rotation = self.opq.rotation
         xr = _rotate(sample, self.rotation, self.device)
-        self.kmeans.fit(xr, iters=kmeans_iters)
-        _, assign = self.kmeans.assign(xr)
-        residuals = xr - self.kmeans.centroids[assign]
-        self.pq.train(residuals, iters=pq_iters)
-        self._finish_train_stats()
+        with timer.stage("kmeans"):
+            self.kmeans.fit(xr, iters=kmeans_iters)
+        with timer.stage("pq_residuals"):
+            _, assign = self.kmeans.assign(xr)
+            residuals = xr - self.kmeans.centroids[assign]
+            self.pq.train(residuals, iters=pq_iters)
+        self._finish_train_stats(timer)
         return self.train_stats
 
-    def _train_big(self, sample, *, kmeans_iters, opq_iters, pq_iters, workdir):
+    def _train_big(self, sample, timer, *, kmeans_iters, opq_iters, pq_iters, workdir):
         import shutil
         import tempfile
 
@@ -371,8 +378,9 @@ class IVFPQIndex:
         if self.spherical:
             sub = _normalize_rows(sub)
         if self.use_opq:
-            self.opq.train(sub, outer_iters=opq_iters, pq_iters=max(4, pq_iters // 2),
-                           keep_staged=True)
+            with timer.stage("opq"):
+                self.opq.train(sub, outer_iters=opq_iters, pq_iters=max(4, pq_iters // 2),
+                               keep_staged=True)
             self.rotation = self.opq.rotation
 
         # 2+3) coarse k-means over the full sample, in one of three modes
@@ -388,10 +396,12 @@ class IVFPQIndex:
 
             src = (RotatedDeviceSource(sample, self.rotation, self.device)
                    if self.use_opq else sample)
-            self.kmeans.fit(src, iters=kmeans_iters)
+            with timer.stage("kmeans"):
+                self.kmeans.fit(src, iters=kmeans_iters)
             mode = "device_streamed"
         elif device_fit:
-            self._kmeans_device_resident(sample, kmeans_iters=kmeans_iters)
+            with timer.stage("kmeans"):
+                self._kmeans_device_resident(sample, kmeans_iters=kmeans_iters)
             mode = "device"
         else:
             # rotate chunk-wise into a disk memmap, re-read every
@@ -413,7 +423,8 @@ class IVFPQIndex:
                     xt = torch.from_numpy(np.ascontiguousarray(xc)).to(self.device)
                     xr_mm[lo:lo + step] = (xt @ rot).cpu().numpy()
                 xr_mm.flush()
-                self.kmeans.fit(xr_mm, iters=kmeans_iters, prenormalized=True)
+                with timer.stage("kmeans"):
+                    self.kmeans.fit(xr_mm, iters=kmeans_iters, prenormalized=True)
             finally:
                 del xr_mm
                 if owns_workdir:
@@ -423,9 +434,10 @@ class IVFPQIndex:
             mode = "streamed"
 
         # 4) PQ on the sub-sample's residuals, computed on the card
-        self._train_pq_residuals(sub, pq_iters=pq_iters)
+        with timer.stage("pq_residuals"):
+            self._train_pq_residuals(sub, pq_iters=pq_iters)
 
-        self._finish_train_stats()
+        self._finish_train_stats(timer)
         self.train_stats["train_mode"] = mode
         self.train_stats["pq_train_rows"] = int(len(sub))
         return self.train_stats
@@ -467,13 +479,14 @@ class IVFPQIndex:
             self.opq.drop_staged()
         self.pq.train_staged(res.view(nsub, self.pq_m, self.dsub), nsub, iters=pq_iters)
 
-    def _finish_train_stats(self) -> None:
+    def _finish_train_stats(self, timer: StageTimer) -> None:
         self.train_stats = {
             "kmeans": self.kmeans.stats,
             "pq": self.pq.stats,
             "opq": self.opq.stats if self.use_opq else None,
             "pq_m": self.pq_m,
             "pq_nbits": self.pq_nbits,
+            "stages": timer.stages,
         }
         # the trained arrays become the index's own, on the card too
         self.set_params(self.kmeans.centroids, self.pq.centroids, self.rotation)

@@ -15,7 +15,15 @@ tensors, the plain version for CPU tensors). Nothing falls back from
 the kernel to the plain version.
 """
 
+from . import adc, topk
 from .adc import adc_scan, adc_topk
 from .topk import streaming_topk
 
-__all__ = ["adc_scan", "adc_topk", "streaming_topk"]
+__all__ = ["adc_scan", "adc_topk", "launch_counts", "streaming_topk"]
+
+
+def launch_counts() -> dict:
+    """Kernel launches so far, by kernel: each wrapper adds one where it
+    launches its kernel (never on the plain route)."""
+    return {"topk": topk.launches, "topk_fast": topk.fast_launches,
+            "adc_topk": adc.launches, **adc.scan_launches}

@@ -1,7 +1,9 @@
-"""Utilities: stage timers and profiler scopes (``trace``), and the
-bounded iterator prefetch of the index fill (``prefetch``)."""
+"""Utilities: stage timers and profiler scopes (``trace``), the bounded
+iterator prefetch of the index fill and the ingest (``prefetch``), and
+the deadline watchdog of unattended runs (``watchdog``)."""
 
 from .prefetch import prefetch_iterator
 from .trace import StageTimer, profile_scope, timed
+from .watchdog import Watchdog
 
-__all__ = ["StageTimer", "prefetch_iterator", "profile_scope", "timed"]
+__all__ = ["StageTimer", "Watchdog", "prefetch_iterator", "profile_scope", "timed"]

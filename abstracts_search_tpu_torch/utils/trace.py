@@ -16,23 +16,34 @@ PROFILE_ENV = "ASTPU_PROFILE"
 
 
 class StageTimer:
-    """Collects named stage durations; writeable as a JSON report."""
+    """Collects named stage durations; writeable as a JSON report.
 
-    def __init__(self):
+    With ``counters`` (a callable -> {name: count}, e.g.
+    ``ops.launch_counts``) each stage also records the counts it moved
+    under ``launches``. ``stage`` yields a dict whose entries the caller
+    may fill in; they join the stage's record."""
+
+    def __init__(self, counters=None):
         self.stages: list[dict] = []
+        self.counters = counters
 
     @contextlib.contextmanager
     def stage(self, name: str, **meta):
+        c0 = self.counters() if self.counters else None
+        extra: dict = {}
         t0 = time.perf_counter()
         err = None
         try:
-            yield
+            yield extra
         except BaseException as e:
             err = repr(e)
             raise
         finally:
             dt = time.perf_counter() - t0
-            rec = {"stage": name, "seconds": round(dt, 4), **meta}
+            rec = {"stage": name, "seconds": round(dt, 4), **meta, **extra}
+            if c0 is not None:
+                rec["launches"] = {k: v - c0.get(k, 0) for k, v in self.counters().items()
+                                   if v != c0.get(k, 0)}
             if err:
                 rec["error"] = err
             self.stages.append(rec)

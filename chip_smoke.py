@@ -27,25 +27,55 @@ Phases, each printing one JSON line; any failure exits non-zero:
           calls, the library yardstick torch.topk(q @ x.T, k), and
           FlatIndex (exact kernel) against its plain route.
   index_build
-          the index build as users run it (train -> save -> load ->
-          fill_stream -> save) at the production geometry (65,536
-          lists, OPQ, PQ128x4, SEG 256, D 1024) on a seeded clustered
-          corpus made on the card chunk by chunk (131,072 rows): train
-          on 10,092,544 rows, device-streamed k-means (kernel 1 at k 1),
-          10 Lloyd iterations, OPQ and residual PQ on a 262,144-row
-          sub-sample; fill 20,971,520 rows (CUDA-tensor chunks, spill,
-          the external distribution-sort pack into the artifact). Prints
-          seconds, iterations, objective, empty splits, mse, kernel-1
-          launches and peak card memory per stage, fill rows/s and its
-          stages, the artifact's bytes. Then kernel 1 at the build shape
-          (Q 131,072 x 65,536 x 1024 bf16, k 1) against its plain
-          version on 16,384-row sub-windows, timed beside its bound, the
-          plain version and torch.max(q @ x.T, 1); the kernel route
-          against the plain route on a training window and a fill
-          chunk (differences only at counted near-ties); the reopened
-          filled index against its plain path; recall@10 at nprobe 16
-          of 256 perturbed corpus rows against an exact top-10 streamed
-          over the regenerated chunks (fails below 0.5).
+          the index build as users run it, at the production geometry
+          (65,536 lists, OPQ, PQ128x4, SEG 256, D 1024), over a data dir
+          holding virtual.json (VirtualSpec(n=20,971,520): the package's
+          virtual corpus, made on the card chunk by chunk, 131,072 rows):
+          `astpu-torch index train` (cli.main: target_train, train_view
+          device-streamed over 77 chunks, 10,092,544 rows, k-means on
+          kernel 1 at k 1, 10 Lloyd iterations, OPQ and residual PQ on a
+          262,144-row sub-sample), `astpu-torch index fill` (target_fill:
+          fill_stream over the reader's row groups into <index_dir>/index,
+          ids.parquet beside it, the fill stamp), then `astpu-torch index
+          tune --force` (target_tune: the exact oracle streamed over the
+          corpus from 256 held-out queries through kernel 1 in bf16, the
+          nprobe sweep, params.json). Stage seconds and launches come
+          from the driver's own records (untuned.json's stages,
+          fill_report.json, tune_report.json). Prints train stages, fill
+          rows/s, the operating points, the chosen nprobe and recall, the
+          oracle's seconds and launches, the sweep's launches. Checks:
+          ids.parquet holds one id per row, in reader order; the oracle
+          and the sweep each launched their kernels;
+          params.json's recall >= 0.9; the oracle against the plain
+          version of kernel 1 over the same chunks (near-ties counted);
+          the held-out queries' exact top-10 = their planted core sets
+          (>= 99%); kernel 1 at the build shape (Q 131,072 x 65,536 x
+          1024 bf16, k 1), at the oracle's (Q 256 x 131,072, k 10) and at
+          the probe's largest swept k, and kernel 3 at that nprobe's live
+          slots, each against its plain version, timed beside its bound
+          and the library call; the kernel route against the plain route
+          on a training window and a fill chunk; the reopened index
+          against its plain path; recall@10 at nprobe 16 of 256
+          perturbed corpus rows (fails below 0.5).
+  ivf_flat
+          IVFFlatIndex with plain L2 (spherical=False) over 2,097,152 x
+          1024 f32 rows of the virtual reader (bench.py's shard size):
+          4,096 lists trained on a 262,144-row sample, filled, 256
+          held-out queries at nprobe 16, k 10. Checks the kernel route
+          against the plain route (differences only at probe near-ties)
+          and recall@10 against an exact f32 top-10 (fails below 0.9);
+          prints QPS, p50 and kernel 1's f32 FMA probe beside its bound.
+  ingest  Driver.target_build on the card: a file:// manifest over 4
+          updated_date= partitions of 512 seeded OpenAlex-shaped works
+          (abstracts of 100-300 words as abstract_inverted_index; ~10%
+          filtered out: no abstract, or another language), the native
+          filter built into build/native/, the full-width stella encoder
+          (phase encoder's seeded weights, f32, whitespace tokenizer) in
+          place of get_embedder, a sqlite store. Prints rows, works
+          filtered out, embed_s, stall_s, rows/s. Checks: a second
+          target_build upserts 0 rows; 32 stored vectors equal the
+          embedder's output on the same batch (atol 1e-5); the native and
+          the Python filter keep the same records.
   index   seeded IVF-PQ artifacts at the production geometry (D 1024,
           65,536 lists, OPQ rotation, PQ128x4 nibble-packed transposed,
           SEG 256, 206,962,688 rows, lognormal-skewed list sizes), written
@@ -87,8 +117,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
           row-major PQ64x8 artifact (4,096 lists, 2,097,152 rows, raw scan
           kernel for byte codes) held against its plain path.
 
-Each path (flat, index_build, serve, encoder, hybrid, host, legacy,
-legacy_pq8, host_pq8)
+Each path (flat, index_build, ivf_flat, ingest, serve, encoder, hybrid,
+host, legacy, legacy_pq8, host_pq8)
 runs with every launch count set to 0
 just before it and read just after, and fails if one of its kernels
 never launched. Then a ``{"kernels": [...]}`` line with one row per TPU
@@ -104,6 +134,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import logging
 import re
 import shutil
 import statistics
@@ -214,10 +245,9 @@ def bound(bytes_moved: float, ops: float, kind: str):
 
 
 def counts() -> dict:
-    from abstracts_search_tpu_torch.ops import adc, topk
+    from abstracts_search_tpu_torch.ops import launch_counts
 
-    return {"topk": topk.launches, "topk_fast": topk.fast_launches,
-            "adc_topk": adc.launches, **adc.scan_launches}
+    return launch_counts()
 
 
 def reset_counts() -> None:
@@ -684,80 +714,13 @@ BUILD_SUB_ROWS = 16_384
 # recall@10 at nprobe 16 of perturbed corpus rows: a broken train or
 # pack gives close to 0
 BUILD_MIN_RECALL = 0.5
+# the recall params.json must reach at its chosen nprobe (recall@10 of
+# held-out queries; a broken oracle or position space reads near 0), and
+# the share of held-out queries whose exact top-10 is their core set
+BUILD_MIN_TUNE_RECALL = 0.9
+HOLDOUT_MIN_CORE = 0.99
 # the phase's device (a CPU rehearsal at small sizes sets "cpu")
 BUILD_DEVICE = "cuda"
-
-
-class ClusteredCorpus:
-    """A seeded clustered mixture made on the card chunk by chunk, the
-    shape of the JAX package's synthetic corpus (``storage/virtual.py``):
-    4,096 cluster centers in a 64-dimensional latent space behind a fixed
-    orthonormal basis, zipf-1.1 cluster masses, micro-groups of 16 rows
-    around an anchor (10 core rows at total jitter 0.05, 6 outer at 0.5),
-    unit rows. A chunk depends only on (seed, chunk index): a chunked
-    device source for ``IVFPQIndex.train`` (``device_chunk``,
-    ``gather_rows``)."""
-
-    prenormalized = True
-    N_CLUSTERS, D_INT, ZIPF, NOISE = 4096, 64, 1.1, 0.5
-    GROUP, CORE, CORE_NOISE, OUTER_NOISE = 16, 10, 0.05, 0.5
-
-    def __init__(self, n_rows: int, seed: int, chunk_rows: int | None = None):
-        chunk_rows = chunk_rows or BUILD_CHUNK
-        rng = np.random.default_rng(seed)
-        basis, _ = np.linalg.qr(rng.standard_normal((DIM, self.D_INT)))
-        centers = rng.standard_normal((self.N_CLUSTERS, self.D_INT))
-        p = 1.0 / np.arange(1, self.N_CLUSTERS + 1) ** self.ZIPF
-        self.basis = torch.from_numpy(basis.astype(np.float32)).to(BUILD_DEVICE)
-        self.centers = torch.from_numpy(centers.astype(np.float32)).to(BUILD_DEVICE)
-        self.p = torch.from_numpy((p / p.sum()).astype(np.float32)).to(BUILD_DEVICE)
-        sig = np.full(self.GROUP, self.CORE_NOISE, np.float32)
-        sig[self.CORE:] = self.OUTER_NOISE
-        self.sig = torch.from_numpy(sig / np.sqrt(DIM)).to(BUILD_DEVICE)
-        self.seed = seed
-        self.chunk_rows = chunk_rows
-        self.num_chunks = n_rows // chunk_rows
-        self.shape = (self.num_chunks * chunk_rows, DIM)
-
-    def __len__(self) -> int:
-        return self.shape[0]
-
-    def device_chunk(self, j: int) -> torch.Tensor:
-        g = torch.Generator(device=BUILD_DEVICE).manual_seed(self.seed * 1_000_003 + int(j))
-        mg = self.chunk_rows // self.GROUP
-        labels = torch.multinomial(self.p, mg, replacement=True, generator=g)
-        low = self.centers[labels] + self.NOISE * torch.randn(
-            (mg, self.D_INT), device=BUILD_DEVICE, generator=g)
-        anchors = torch.nn.functional.normalize(low @ self.basis.T, dim=1)
-        rows = anchors.repeat_interleave(self.GROUP, 0)
-        rows += self.sig.repeat(mg)[:, None] * torch.randn(
-            (mg * self.GROUP, DIM), device=BUILD_DEVICE, generator=g)
-        return torch.nn.functional.normalize(rows, dim=1)
-
-    def gather_rows(self, idx) -> np.ndarray:
-        from abstracts_search_tpu_torch.storage.virtual import _gather_from_chunks
-
-        return _gather_from_chunks(self.device_chunk, self.chunk_rows,
-                                   np.asarray(idx, np.int64), DIM)
-
-
-def timed_stage(stages: dict, name: str, fn):
-    """Wrap ``fn`` so each call records its seconds, kernel-1 launches
-    and the card's peak memory under ``stages[name]``."""
-    from abstracts_search_tpu_torch.ops import topk
-
-    def run(*a, **kw):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        n0, t = topk.launches, time.perf_counter()
-        out = fn(*a, **kw)
-        torch.cuda.synchronize()
-        stages[name] = {"seconds": time.perf_counter() - t,
-                        "topk_launches": topk.launches - n0,
-                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        return out
-
-    return run
 
 
 def assign_near_ties(x, c_bf16, got, ref, tol=1e-5):
@@ -827,7 +790,7 @@ def build_kernel_row(idx, corpus, seed: int) -> dict:
             "library": f"torch.max(q @ x.T, 1) over {BUILD_SUB_ROWS}-row sub-windows"}
 
 
-def build_checks(filled: Path, corpus, fill_idx, seed: int) -> dict:
+def build_checks(filled: Path, reader, fill_idx, seed: int) -> dict:
     """The kernel route against the plain route on a training window and
     on a fill chunk (differences only at counted near-ties), the reopened
     filled index held against its plain path at nprobe 2 and 16 (kernels
@@ -841,7 +804,7 @@ def build_checks(filled: Path, corpus, fill_idx, seed: int) -> dict:
     # one training window: the device-streamed k-means' own step
     km = fill_idx.kmeans
     c_pad = km._centroids_padded()
-    xw = (corpus.device_chunk(5) @ fill_idx._rot)[:BUILD_SUB_ROWS]
+    xw = (reader.device_chunk(5) @ fill_idx._rot)[:BUILD_SUB_ROWS]
     got = km._top1(xw, c_pad)[1]
     km.impl = "torch"
     ref = km._top1(xw, c_pad)[1]
@@ -852,7 +815,7 @@ def build_checks(filled: Path, corpus, fill_idx, seed: int) -> dict:
     res["train_window"] = {"rows": BUILD_SUB_ROWS, "assignments_differing_at_near_ties":
                            n_diff}
     # one fill chunk through the fused encode, both routes
-    chunk = corpus.device_chunk(7)
+    chunk = reader.device_chunk(7)
     out = {}
     for impl in ("cuda", "torch"):
         fill_idx.impl = impl
@@ -873,8 +836,8 @@ def build_checks(filled: Path, corpus, fill_idx, seed: int) -> dict:
     # 256 perturbed corpus rows: a corpus row plus core-level jitter
     rng = np.random.default_rng(seed + 5)
     own = np.sort(rng.choice(idx.n, 256, replace=False))
-    base = corpus.gather_rows(own)
-    q = base + (ClusteredCorpus.CORE_NOISE / np.sqrt(DIM)) * rng.standard_normal(
+    base = reader.gather_rows(own)
+    q = base + (reader.spec.group_noise / np.sqrt(DIM)) * rng.standard_normal(
         base.shape).astype(np.float32)
     q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
     res["vs_plain"] = hold_against_plain(idx, {"perturbed": q}, None)
@@ -882,9 +845,8 @@ def build_checks(filled: Path, corpus, fill_idx, seed: int) -> dict:
     t = time.perf_counter()
     best_v = torch.full((256, 10), float("-inf"), device=BUILD_DEVICE)
     best_i = torch.zeros((256, 10), dtype=torch.int64, device=BUILD_DEVICE)
-    for c in range(idx.n // BUILD_CHUNK):
-        v, i = topk.streaming_topk(qt, corpus.device_chunk(c), BUILD_CHUNK, 10,
-                                   impl="cuda")
+    for c in range(reader.num_chunks):
+        v, i = topk.streaming_topk(qt, reader.device_chunk(c), BUILD_CHUNK, 10, impl="cuda")
         best_v, best_i = merge_topk(torch.stack([best_v, v]),
                                     torch.stack([best_i, i.long() + c * BUILD_CHUNK]), 10)
     exact = best_i.cpu().numpy()
@@ -904,65 +866,181 @@ def artifact_bytes(d: Path) -> int:
     return sum(p.stat().st_size for p in d.rglob("*") if p.is_file())
 
 
+def astpu(*argv) -> None:
+    """One ``astpu-torch`` command, as a user runs it (``cli.main``)."""
+    from abstracts_search_tpu_torch import cli
+
+    rc = cli.main(["--device", BUILD_DEVICE, *map(str, argv)])
+    if rc != 0:
+        raise AssertionError(f"astpu-torch {' '.join(map(str, argv))} exited {rc}")
+
+
+def oracle_checks(reader, oracle_path: Path, seed: int) -> dict:
+    """The tune oracle (kernel 1, bf16, chunk 1024) against an exact
+    top-10 that the plain version of kernel 1 computes over the same
+    chunks in the same dtype (position lists equal except at counted
+    near-ties: both lists a valid top-10 under f64 scores of the bf16
+    operands within 1e-5); and the held-out queries' exact top-10 against
+    their planted core sets."""
+    from abstracts_search_tpu_torch.ops import topk
+
+    z = np.load(oracle_path)
+    queries, ref = z["queries"], z["ref"]
+    # the oracle's own dtype: bf16 on the card (f32 in a CPU rehearsal)
+    dt = torch.bfloat16 if torch.device(BUILD_DEVICE).type == "cuda" else torch.float32
+    qb = torch.from_numpy(queries).to(BUILD_DEVICE, dt)
+    qn, k = ref.shape
+    best_v = np.full((qn, k), -np.inf, np.float32)
+    best_p = np.full((qn, k), -1, np.int64)
+    t = time.perf_counter()
+    for c in range(reader.num_chunks):
+        x = reader.device_chunk(c).to(dt)
+        v, i = topk.streaming_topk(qb, x, BUILD_CHUNK, k, chunk=BUILD_CHUNK, impl="torch")
+        av = np.concatenate([best_v, v.cpu().numpy()], 1)
+        ap = np.concatenate([best_p, i.cpu().numpy().astype(np.int64) + c * BUILD_CHUNK], 1)
+        sel = np.argsort(-av, axis=1, kind="stable")[:, :k]
+        best_v, best_p = np.take_along_axis(av, sel, 1), np.take_along_axis(ap, sel, 1)
+    plain_s = time.perf_counter() - t
+    differ = np.nonzero((best_p != ref).any(1))[0]
+    ties = 0
+    for r in differ:
+        qd = qb[r].double()
+        sc = [torch.from_numpy(reader.gather_rows(p)).to(BUILD_DEVICE).to(dt).double() @ qd
+              for p in (ref[r], best_p[r])]
+        a, b = (s.sort(descending=True).values for s in sc)
+        ties += int((a - b).abs().max() <= 1e-5)
+    if ties < len(differ):
+        raise AssertionError(f"the tune oracle differs from the plain top-10 beyond near-ties "
+                             f"on {len(differ) - ties} queries")
+    g = reader.spec.group_size
+    groups = np.sort(np.random.default_rng(0).choice(len(reader) // g, size=qn,
+                                                     replace=False))
+    core = np.mean([set(ref[i]) == set(range(groups[i] * g,
+                                             groups[i] * g + reader.spec.group_core))
+                    for i in range(qn)])
+    if core < HOLDOUT_MIN_CORE:
+        raise AssertionError(f"only {core} of the held-out queries have their planted core "
+                             f"set as exact top-10")
+    return {"queries": int(qn), "k": int(k), "plain_seconds": plain_s,
+            "queries_differing_at_near_ties": int(len(differ)),
+            "exact_top10_is_core_set": float(core)}
+
+
+def oracle_row(reader, oracle_path: Path) -> dict:
+    """Kernel 1 at the tune oracle's shape: the 256 held-out queries
+    against one 131,072-row corpus chunk, bf16, k 10."""
+    from abstracts_search_tpu_torch.ops import topk
+
+    q = torch.from_numpy(np.load(oracle_path)["queries"]).to(BUILD_DEVICE, torch.bfloat16)
+    x = reader.device_chunk(0).to(torch.bfloat16)
+    k = 10
+    run = lambda impl: topk.streaming_topk(q, x, BUILD_CHUNK, k, impl=impl)  # noqa: E731
+    err, bad, ties = compare_topk(q, x, k, run("cuda"), run("torch"), 1e-5)
+    if bad or err > 1e-5:
+        raise AssertionError(f"kernel 1 at the oracle's shape: {bad} rows, err {err}")
+    qn = q.shape[0]
+    b, by = bound(x.numel() * 2 + q.numel() * 2 + qn * k * 8, 2 * qn * BUILD_CHUNK * DIM,
+                  "bf16")
+    return {"shape": [qn, BUILD_CHUNK, DIM, k], "dtype": "bf16", "max_abs_err": err,
+            "index_mismatches": bad, "near_ties": ties,
+            "ms": cuda_ms(lambda: run("cuda")),
+            "device_ms": device_ms(lambda: run("cuda"), DEVICE_NAMES["topk"]),
+            "plain_ms": cuda_ms(lambda: run("torch"), reps=3, warmup=1),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.topk(q @ x.T, k))}
+
+
 def index_build_phase(seed: int, by_path: dict, out: Path):
-    """train -> save (empty) -> load -> fill_stream -> save, at the
-    production geometry, on a corpus made on the card. -> (phase result,
-    the kernel-1 row at the build shape)."""
+    """The index build as users run it, at the production geometry, over
+    a virtual data dir (``virtual.json``, rows made on the card):
+    ``astpu-torch index train``, ``index fill``, then ``index tune
+    --force``. Stage seconds and launches are the driver's own records.
+    -> (phase result, kernel rows at the build's and the tune's shapes)."""
+    import pyarrow.parquet as pq
+
     from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
+    from abstracts_search_tpu_torch.storage.virtual import (VirtualShardReader, VirtualSpec,
+                                                            write_spec)
 
     shutil.rmtree(out, ignore_errors=True)
-    empty, filled = out / "empty", out / "filled"
-    train_src = ClusteredCorpus(BUILD_TRAIN_ROWS, seed)
-    fill_src = ClusteredCorpus(BUILD_FILL_ROWS, seed)
-    idx = IVFPQIndex(N_LISTS, DIM, pq_m=PQ_M, pq_nbits=PQ_NBITS, use_opq=True, seg_size=SEG,
-                     seed=seed, device=BUILD_DEVICE)
-    stages = {}
-    idx.opq.train = timed_stage(stages, "opq", idx.opq.train)
-    idx.kmeans.fit = timed_stage(stages, "kmeans", idx.kmeans.fit)
-    idx._train_pq_residuals = timed_stage(stages, "pq_residuals", idx._train_pq_residuals)
+    data, idx_dir = out / "data", out / "idx"
+    spec = VirtualSpec(n=BUILD_FILL_ROWS, dim=DIM, chunk_rows=BUILD_CHUNK, seed=seed)
+    write_spec(data, spec)
+    empty, filled = idx_dir / "empty", idx_dir / "index"
+    reader = VirtualShardReader(data, device=BUILD_DEVICE)
+    secs = {}
+
+    def timed(name, *argv):
+        t = time.perf_counter()
+        astpu("index", "-B", idx_dir, *argv)
+        secs[name] = time.perf_counter() - t
 
     def path():
-        t = time.perf_counter()
-        idx.train(train_src, kmeans_iters=BUILD_KMEANS_ITERS)
-        train_s = time.perf_counter() - t
-        idx.save(empty, include_lists=False)
-        t = time.perf_counter()
-        fill_idx = IVFPQIndex.load(empty, device=BUILD_DEVICE)
+        timed("train", "train", "-N", "-c", N_LISTS, "--pq-m", PQ_M, "--pq-nbits", PQ_NBITS,
+              "--sample", BUILD_TRAIN_ROWS, "--iters", BUILD_KMEANS_ITERS, data)
         torch.cuda.reset_peak_memory_stats()
-        fill_idx.fill_stream(((fill_src.device_chunk(c),
-                               np.arange(c * BUILD_CHUNK, (c + 1) * BUILD_CHUNK))
-                              for c in range(fill_src.num_chunks)),
-                             lists_dir=filled / "lists")
-        fill_peak = torch.cuda.max_memory_allocated() / 2**30
-        fill_idx.save(filled)
-        return train_s, time.perf_counter() - t, fill_peak, fill_idx
+        timed("fill", "fill", data)
+        secs["fill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        release()
+        timed("tune", "tune", "--force", data)
+        release()
 
-    train_s, fill_s, fill_peak, fill_idx = drive("index_build", path, ("topk",), by_path)
-    ts = idx.train_stats
+    drive("index_build", path, ("topk", "adc_topk"), by_path)
+    ts = json.loads((idx_dir / "untuned.json").read_text())
     km = ts["kmeans"]
+    fill_st = {s["stage"]: s for s in json.loads((idx_dir / "fill_report.json").read_text())
+               ["stages"]}
+    tune_st = {s["stage"]: s for s in json.loads((idx_dir / "tune_report.json").read_text())
+               ["stages"]}
+    params_path = idx_dir / "params.json"
+    if not params_path.exists():
+        raise AssertionError("astpu-torch index tune wrote no params.json")
+    params = json.loads(params_path.read_text())
+    points = params["operating_points"]
+    idx = IVFPQIndex.load(filled, device=BUILD_DEVICE)
+    n_ids = pq.ParquetFile(idx_dir / "ids.parquet").metadata.num_rows
+    ends = pq.read_table(idx_dir / "ids.parquet").column("id")
+    ends = [ends[0].as_py(), ends[n_ids - 1].as_py()]
     res = {
         "config": {"n_lists": N_LISTS, "dim": DIM, "pq": f"PQ{PQ_M}x{PQ_NBITS}", "opq": True,
                    "seg_size": SEG, "train_rows": BUILD_TRAIN_ROWS,
                    "fill_rows": BUILD_FILL_ROWS, "chunk_rows": BUILD_CHUNK,
-                   "kmeans_iters": BUILD_KMEANS_ITERS},
+                   "kmeans_iters": BUILD_KMEANS_ITERS, "virtual_spec": spec.__dict__},
         "reduced": [f"fill {BUILD_FILL_ROWS} of {BUILD_FULL_ROWS} rows, for the smoke's time",
-                    "a synthetic clustered corpus made on the card: real embeddings are "
-                    "not in the repository"],
-        "train": {"seconds": train_s, "train_mode": ts["train_mode"],
-                  "pq_train_rows": ts["pq_train_rows"], "stages": stages,
+                    "a synthetic clustered corpus made on the card (virtual.json): real "
+                    "embeddings are not in the repository"],
+        "commands": ["astpu-torch index train -N ...", "astpu-torch index fill",
+                     "astpu-torch index tune --force"],
+        "train": {"seconds": secs["train"], "train_mode": ts["train_mode"],
+                  "pq_train_rows": ts["pq_train_rows"], "stages": ts["stages"],
                   "kmeans_iters_run": km["iters_run"], "kmeans_objective": km["objective"],
                   "kmeans_empty_splits": km["empty_splits"],
                   "opq_mse": ts["opq"]["mse"], "pq_mse": ts["pq"]["mse"]},
-        "fill": {"load_fill_save_seconds": fill_s, **fill_idx.fill_stats, "peak_gib": fill_peak,
-                 "artifact_bytes": artifact_bytes(filled), "n_segs": fill_idx.packed.n_segs,
+        "fill": {"seconds": secs["fill"], "stages": list(fill_st.values()),
+                 "peak_gib": secs["fill_peak_gib"], "ids_parquet_rows": n_ids,
+                 "first_last_ids": ends, "artifact_bytes": artifact_bytes(filled),
+                 "n_segs": idx.packed.n_segs,
                  "external_pack": "distribution sort"
-                 if fill_idx.n * fill_idx.code_bytes > (1 << 30) else "sorted scatter"},
+                 if idx.n * idx.code_bytes > (1 << 30) else "sorted scatter"},
+        "tune": {"seconds": secs["tune"], "stages": tune_st, "chosen_nprobe": params["nprobe"],
+                 "chosen_recall": params["achieved_recall"],
+                 "target_recall": params["target_recall"], "operating_points": points},
         "launches": by_path["index_build"],
     }
-    if fill_idx.n != BUILD_FILL_ROWS or not np.isfinite(km["objective"]).all():
-        raise AssertionError(f"the build filled {fill_idx.n} rows")
+    if (idx.n != BUILD_FILL_ROWS or n_ids != BUILD_FILL_ROWS
+            or ends != ["W0", f"W{BUILD_FILL_ROWS - 1}"]
+            or fill_st["fill_stream"]["fill_stats"]["rows"] != BUILD_FILL_ROWS
+            or not np.isfinite(km["objective"]).all()):
+        raise AssertionError(f"the build filled {idx.n} rows, ids.parquet holds {n_ids} "
+                             f"({ends})")
+    if params["achieved_recall"] < BUILD_MIN_TUNE_RECALL:
+        raise AssertionError(f"tune chose nprobe {params['nprobe']} at recall "
+                             f"{params['achieved_recall']} < {BUILD_MIN_TUNE_RECALL}")
+    for stage, kernels in (("oracle", ("topk",)), ("sweep", ("topk", "adc_topk"))):
+        if not all(tune_st.get(stage, {}).get("launches", {}).get(k) for k in kernels):
+            raise AssertionError(f"tune's {stage} launched none of {kernels}: {tune_st}")
     # two runs from one seed give bit-identical centroid sums
-    x = ClusteredCorpus(BUILD_CHUNK, seed).device_chunk(0)
+    x = reader.device_chunk(0)
     a = torch.randint(0, N_LISTS, (BUILD_CHUNK,), device=BUILD_DEVICE)
     from abstracts_search_tpu_torch.index.kmeans import segment_sum
 
@@ -971,10 +1049,283 @@ def index_build_phase(seed: int, by_path: dict, out: Path):
     if not res["segment_sums_bit_identical"]:
         raise AssertionError("the centroid sums are not deterministic")
     del x, a
-    row = build_kernel_row(fill_idx, train_src, seed)
-    res["kernel_1_build_shape"] = row
-    res["checks"] = build_checks(filled, fill_src, fill_idx, seed)
-    del fill_idx, idx
+    oracle_launches = tune_st["oracle"]["launches"]
+    queries = np.load(idx_dir / "tune_oracle.npz")["queries"]
+    np_max = max(p["nprobe"] for p in points)
+    sweep = probe_and_scan_rows(idx, queries, np_max, 10)
+    del idx
+    release()
+    trained = IVFPQIndex.load(empty, device=BUILD_DEVICE)
+    rows = {"topk": {"index_build": build_kernel_row(trained, reader.train_view(
+        BUILD_TRAIN_ROWS), seed)}}
+    res["kernel_1_build_shape"] = rows["topk"]["index_build"]
+    res["tune"]["oracle_checks"] = oracle_checks(reader, idx_dir / "tune_oracle.npz", seed)
+    rows["topk"]["tune_oracle"] = {
+        **oracle_row(reader, idx_dir / "tune_oracle.npz"),
+        "launches_in_path": oracle_launches.get("topk", 0)}
+    sweep_launches = tune_st["sweep"]["launches"]
+    rows["topk"]["tune_probe"] = {**sweep["topk"], "nprobe": np_max,
+                                  "launches_in_path": sweep_launches.get("topk", 0)}
+    rows["adc_topk"] = {"tune_scan": {**sweep["adc_topk"], "nprobe": np_max,
+                                      "launches_in_path": sweep_launches.get("adc_topk", 0)}}
+    res["tune"]["kernel_rows"] = {"oracle": rows["topk"]["tune_oracle"],
+                                  "probe": rows["topk"]["tune_probe"],
+                                  "scan": rows["adc_topk"]["tune_scan"]}
+    res["checks"] = build_checks(filled, reader, trained, seed)
+    del trained
+    release()
+    return res, rows
+
+
+# -- ingest: the driver's target_build on the card --------------------------------------
+
+# 4 partitions of 1,024 works took the phase 124-128 s with the f32
+# encoder, past its 120 s: halved
+INGEST_PARTITIONS, INGEST_WORKS, INGEST_WORKS_FULL = 4, 512, 1024
+# about 10% of the works are filtered out: 5% carry no abstract, 5% are
+# in another language
+INGEST_DROP_NO_ABSTRACT, INGEST_DROP_LANGUAGE = 0.05, 0.05
+INGEST_WORDS = (100, 300)
+INGEST_CHECK_ROWS = 32
+# stored vectors against the embedder's own output on the same batch
+INGEST_ATOL = 1e-5
+
+
+def openalex_work(rng, i: int, date: str, vocab: list) -> dict:
+    """One OpenAlex-shaped work: an id, a title, a language and the
+    abstract as ``abstract_inverted_index`` (word -> positions)."""
+    n = int(rng.integers(INGEST_WORDS[0], INGEST_WORDS[1] + 1))
+    words = [vocab[j] for j in rng.integers(0, len(vocab), n)]
+    inv: dict = {}
+    for pos, w in enumerate(words):
+        inv.setdefault(w, []).append(pos)
+    u = rng.random()
+    lang = "de" if u < INGEST_DROP_LANGUAGE else "en"
+    return {"id": f"https://openalex.org/W{date.replace('-', '')}{i:05d}",
+            "title": f"Study {i} of {vocab[i % len(vocab)]}", "language": lang,
+            "abstract_inverted_index": None if rng.random() < INGEST_DROP_NO_ABSTRACT else inv}
+
+
+def write_snapshot(root: Path, seed: int) -> tuple[str, list]:
+    """Gzipped part files under ``root/snapshot/updated_date=<d>/`` and a
+    ``file://`` manifest over them. -> (manifest URL, the part paths)."""
+    import gzip
+
+    rng = np.random.default_rng(seed + 21)
+    vocab = [f"w{j}" for j in range(20_000)]
+    entries, parts = [], []
+    for p in range(INGEST_PARTITIONS):
+        date = f"2024-{p + 1:02d}-01"
+        pdir = root / "snapshot" / f"updated_date={date}"
+        pdir.mkdir(parents=True, exist_ok=True)
+        part = pdir / "part_000.gz"
+        lines = "\n".join(json.dumps(openalex_work(rng, i, date, vocab))
+                          for i in range(INGEST_WORKS)) + "\n"
+        part.write_bytes(gzip.compress(lines.encode()))
+        entries.append({"url": part.as_uri()})
+        parts.append(part)
+    manifest = root / "manifest.json"
+    manifest.write_text(json.dumps({"entries": entries}))
+    return manifest.as_uri(), parts
+
+
+def ingest_phase(seed: int, by_path: dict, out: Path) -> dict:
+    """``Driver.target_build`` on the card: a ``file://`` manifest over
+    seeded OpenAlex-shaped part files, the native filter built into
+    ``build/native/``, the full-width stella encoder (phase encoder's
+    seeded weights, the whitespace tokenizer) in place of
+    ``get_embedder``, a sqlite store."""
+    import gzip
+
+    from abstracts_search_tpu_torch.config import Config
+    from abstracts_search_tpu_torch.driver import Driver
+    from abstracts_search_tpu_torch.ingest import oa_filter
+    from abstracts_search_tpu_torch.models.embed import EmbeddingPipeline, whitespace_tokenizer
+    from abstracts_search_tpu_torch.models.qwen2 import Qwen2Config
+    from abstracts_search_tpu_torch.models.stella import StellaConfig, StellaEncoder
+    from abstracts_search_tpu_torch.storage.sqlite_store import EmbeddingStore
+
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    url, parts = write_snapshot(out, seed)
+    res = {"partitions": INGEST_PARTITIONS, "works": INGEST_PARTITIONS * INGEST_WORKS,
+           "words_per_abstract": list(INGEST_WORDS),
+           "reduced": [f"{INGEST_WORKS} of {INGEST_WORKS_FULL} works per partition: the "
+                       f"f32 encoder took the phase past 120 s"]}
+    t = time.perf_counter()
+    binary = oa_filter.ensure_filter_built()
+    res["native_filter"] = {"binary": str(binary.relative_to(Path(__file__).resolve().parent)),
+                            "build_seconds": time.perf_counter() - t}
+    # the same records through the native and the Python filter
+    raw = b"".join(gzip.decompress(p.read_bytes()) for p in parts).decode()
+    py = list(oa_filter.filter_works_lines(raw.splitlines()))
+    with oa_filter.OaJsonlFilter() as f:
+        native = f.filter_text(raw)
+    res["native_equals_python_filter"] = native == py
+    if not res["native_equals_python_filter"]:
+        raise AssertionError(f"the native filter kept {len(native)} records, the Python "
+                             f"filter {len(py)}, or they differ")
+
+    t = time.perf_counter()
+    scfg = StellaConfig(backbone=Qwen2Config.stella_1_5b(), mrl_dim=1024)
+    g = torch.Generator(device=BUILD_DEVICE).manual_seed(seed + 11)
+    model = StellaEncoder(scfg, device=BUILD_DEVICE).init_random_(g)
+    cfg = Config(manifest_url=url, embed_dim=1024)
+    pipe = EmbeddingPipeline(scfg, model.state_dict(), whitespace_tokenizer(
+        scfg.backbone.vocab_size), batch_size=cfg.embed_batch, device=BUILD_DEVICE)
+    del model
+    release()
+    res["encoder_load_seconds"] = time.perf_counter() - t
+    drv = Driver(cfg, root=out, embedder=pipe, device=BUILD_DEVICE)
+
+    def path():
+        t0 = time.perf_counter()
+        got = drv.target_build()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    got, secs = drive("ingest", path, (), by_path)
+    rows = sum(got.values())
+    st = drv.build_stats
+    res.update({
+        "rows_upserted": rows, "works_filtered_out": res["works"] - rows,
+        "seconds": secs, "rows_per_s": rows / secs,
+        "embed_s": sum(s["embed_s"] for s in st.values()),
+        "stall_s": sum(s["stall_s"] for s in st.values()), "per_partition": st,
+        "embed_batch": cfg.embed_batch, "dtype": "f32"})
+    if rows != len(py):
+        raise AssertionError(f"upserted {rows} rows, the filter kept {len(py)}")
+    again = drv.target_build()
+    res["second_build_upserts"] = sum(again.values())
+    if again:
+        raise AssertionError(f"a second target_build ingested {again}")
+    # the first batch of the first partition, re-embedded as it was
+    first = py[:INGEST_CHECK_ROWS]
+    want = pipe([r["document"] for r in first])
+    with EmbeddingStore(drv.store_path) as store:
+        stored = np.stack([store.get(r["id"]) for r in first])
+        res["store_rows"] = len(store)
+    err = float(np.abs(stored - want).max())
+    res["stored_vs_embedder"] = {"rows": INGEST_CHECK_ROWS, "max_abs_err": err,
+                                 "bit_equal": bool(np.array_equal(stored, want)),
+                                 "atol": INGEST_ATOL}
+    if err > INGEST_ATOL or res["store_rows"] != rows:
+        raise AssertionError(f"stored vectors differ from the embedder's: {err}")
+    res["launches"] = by_path["ingest"]
+    del pipe, drv
+    release()
+    return res
+
+
+# -- IVF-Flat, plain L2 -------------------------------------------------------------------
+
+# bench.py's shard size, 4,096 lists, trained on a 262,144-row sample
+IVFF = {"n_rows": 2_097_152, "n_lists": 4096, "train_rows": 262_144, "queries": 256,
+        "nprobe": 16, "k": 10}
+IVFF_MIN_RECALL = 0.9
+
+
+def ivf_flat_probe_row(idx, q, nprobe: int) -> dict:
+    """Kernel 1 at the plain-L2 probe's shape: f32 bias-augmented
+    queries against the padded centroids (the FMA route)."""
+    from abstracts_search_tpu_torch.index.kmeans import _assign_operands
+    from abstracts_search_tpu_torch.ops import topk
+
+    qq, cc = _assign_operands(torch.from_numpy(q).to(BUILD_DEVICE), idx._c_pad, False)
+    n = idx.n_lists
+    run = lambda impl: topk.streaming_topk(qq, cc, n, nprobe, impl=impl)  # noqa: E731
+    err, bad, ties = compare_topk(qq, cc, nprobe, run("cuda"), run("torch"), 1e-5)
+    if bad or err > 1e-5:
+        raise AssertionError(f"kernel 1 at the IVF-Flat probe: {bad} rows, err {err}")
+    qn, w = qq.shape
+    # the function's own operands: D + 1 columns (the vector and the
+    # bias); the zero columns that pad them to 128 are not its work
+    b, by = bound((n + qn) * (DIM + 1) * 4 + qn * nprobe * 8, 2 * qn * n * (DIM + 1), "f32")
+    return {"shape": [qn, n, w, nprobe], "dtype": "f32", "max_abs_err": err,
+            "index_mismatches": bad, "near_ties": ties,
+            "ms": cuda_ms(lambda: run("cuda")),
+            "device_ms": device_ms(lambda: run("cuda"), DEVICE_NAMES["topk"]),
+            "plain_ms": cuda_ms(lambda: run("torch"), reps=3, warmup=1),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.topk(qq @ cc[:n].T, nprobe))}
+
+
+def ivf_flat_phase(seed: int, by_path: dict, out: Path):
+    """``IVFFlatIndex`` with plain L2 (``spherical=False``) over 2,097,152 x
+    1024 f32 rows drawn from the virtual reader: 4,096 lists trained on a
+    262,144-row sample, filled, searched at nprobe 16, k 10. -> (phase
+    result, the kernel-1 row at its probe)."""
+    from abstracts_search_tpu_torch.index import FlatIndex, IVFFlatIndex
+    from abstracts_search_tpu_torch.storage.virtual import (VirtualShardReader, VirtualSpec,
+                                                            write_spec)
+
+    shutil.rmtree(out, ignore_errors=True)
+    write_spec(out, VirtualSpec(n=IVFF["n_rows"], dim=DIM, chunk_rows=BUILD_CHUNK,
+                                seed=seed + 7))
+    reader = VirtualShardReader(out, device=BUILD_DEVICE)
+    t = time.perf_counter()
+    x = reader.read_all(with_ids=False)[1]
+    q = reader.holdout_queries(IVFF["queries"], seed=seed)
+    res = {"config": {**IVFF, "dim": DIM, "metric": "plain L2 (spherical=False)",
+                      "seg_size": 512}, "data_seconds": time.perf_counter() - t}
+    idx = IVFFlatIndex(IVFF["n_lists"], spherical=False, seed=seed, device=BUILD_DEVICE)
+    nprobe, k = IVFF["nprobe"], IVFF["k"]
+
+    def path():
+        t0 = time.perf_counter()
+        idx.train(reader.sample(IVFF["train_rows"], seed=seed))
+        torch.cuda.synchronize()
+        res["train_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx.fill(x)
+        torch.cuda.synchronize()
+        res["fill_seconds"] = time.perf_counter() - t0
+        return idx.search(q, k, nprobe=nprobe)
+
+    v, p = drive("ivf_flat", path, ("topk",), by_path)
+    res["launches"] = by_path["ivf_flat"]
+    res["kmeans"] = {key: idx.kmeans.stats.get(key) for key in ("iters_run", "empty_splits")}
+    # the kernel route against the plain route: the probe is kernel 1;
+    # the scan is the same f32 product on both routes
+    idx.impl = idx.kmeans.impl = "torch"
+    pv, pp = idx.search(q, k, nprobe=nprobe)
+    idx.impl = idx.kmeans.impl = "auto"
+    differ = np.nonzero((p != pp).any(1))[0]
+    from abstracts_search_tpu_torch.index.kmeans import _assign_operands
+
+    qq, cc = _assign_operands(torch.from_numpy(q).to(BUILD_DEVICE), idx._c_pad, False)
+    ties = 0
+    for r in differ:
+        s = cc[:idx.n_lists].double() @ qq[r].double()
+        top = s.sort(descending=True).values
+        # a near-tie: the nprobe-th and the next centroid within 1e-5
+        ties += int(top[nprobe - 1] - top[nprobe] <= 1e-5)
+    same = np.setdiff1d(np.arange(len(q)), differ)
+    err = float(np.abs(v[same] - pv[same]).max()) if len(same) else 0.0
+    res["vs_plain"] = {"queries_differing_at_probe_near_ties": int(len(differ)),
+                       "max_abs_err": err}
+    if ties < len(differ) or err > 1e-5:
+        raise AssertionError(f"IVF-Flat kernel route disagrees with the plain route: "
+                             f"{len(differ) - ties} queries beyond near-ties, err {err}")
+    flat = FlatIndex(dtype=torch.float32, device=BUILD_DEVICE)
+    flat.add(x)
+    _, exact = flat.search(q, k)
+    del flat
+    recall = float(np.mean([len(set(p[i]) & set(exact[i])) / k for i in range(len(q))]))
+    res["recall_at_10_np16"] = recall
+    if recall < IVFF_MIN_RECALL:
+        raise AssertionError(f"IVF-Flat recall@10 {recall} < {IVFF_MIN_RECALL}")
+    batch = cuda_ms(lambda: idx.search(q, k, nprobe=nprobe), reps=5, warmup=1)
+    singles = []
+    for i in range(50):
+        t0 = time.perf_counter()
+        idx.search(q[i:i + 1], k, nprobe=nprobe)
+        singles.append((time.perf_counter() - t0) * 1e3)
+    res.update({"qps_batch256": len(q) / batch * 1e3, "batch256_ms": batch,
+                "p50_ms": statistics.median(singles)})
+    row = ivf_flat_probe_row(idx, q, nprobe)
+    res["kernel_1_probe_f32"] = row
+    del idx, x
     release()
     return res, row
 
@@ -1332,11 +1683,13 @@ def hold_against_kept(idx, q_sets: dict, kept: dict) -> dict:
     return res
 
 
-def stage_split(ctx: dict, nprobe: int = 16, k: int = 10, reps: int = 5) -> dict:
+def stage_split(ctx: dict, nprobe: int = 16, k: int = 10, reps: int = 5,
+                trace_level: int = logging.WARNING) -> dict:
     """One batch-256 search of the engine split by StageTimer into the
     steps IVFPQIndex.search and the engine run, each ended by a
     synchronize; the rep of median host-clock time is reported. The
-    stages must sum to within 10% of that time."""
+    stages must sum to within 10% of that time. The timer's logger is
+    held at ``trace_level`` while it runs."""
 
     from abstracts_search_tpu_torch.index.ivfpq import _normalize_rows
     from abstracts_search_tpu_torch.utils.trace import StageTimer
@@ -1372,8 +1725,17 @@ def stage_split(ctx: dict, nprobe: int = 16, k: int = 10, reps: int = 5) -> dict
             out = [[{"id": next(names), "score": a} for a, _ in row] for row in hits]
         return timer.report(), time.perf_counter() - t0, out
 
-    one()
-    runs = sorted((one() for _ in range(reps)), key=lambda r: r[1])
+    # the timer writes one INFO line per stage, between the stages: with
+    # stderr on a file that is time of the instrument, not of the search
+    # (tools/stage_split_log.py measures it)
+    trace_log = logging.getLogger("abstracts_search_tpu_torch.utils.trace")
+    level = trace_log.level
+    trace_log.setLevel(trace_level)
+    try:
+        one()
+        runs = sorted((one() for _ in range(reps)), key=lambda r: r[1])
+    finally:
+        trace_log.setLevel(level)
     report, total_s, out = runs[len(runs) // 2]
     want = engine.search_batch(texts, k)
     if [[r["id"] for r in row] for row in out] != [[r["id"] for r in row] for row in want]:
@@ -1797,8 +2159,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-rows", type=int, default=206_962_688)
     ap.add_argument("--phases",
-                    default="device,build,kernels,flat,index_build,index,serve,"
-                            "stages_batch256,encoder,hybrid,host,legacy",
+                    default="device,build,kernels,flat,index_build,ivf_flat,ingest,index,"
+                            "serve,stages_batch256,encoder,hybrid,host,legacy",
                     help="comma-separated subset, for development runs")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1856,15 +2218,39 @@ def main() -> int:
         rows["topk_fast"] = flat_rows["topk_fast"]
         emit({"phase": "flat", "seconds": time.perf_counter() - t, **res})
 
-    build_row = None
+    # kernel rows of the phases before serve, attached once serve has
+    # made each kernel's main row
+    extra_rows = {"topk": {}, "adc_topk": {}}
+    build_root = Path(__file__).resolve().parent / "build"
     if "index_build" in phases:
         t = time.perf_counter()
-        build_dir = Path(__file__).resolve().parent / "build" / "smoke_build"
+        build_dir = build_root / "smoke_build"
         try:
-            res, build_row = index_build_phase(args.seed, by_path, build_dir)
+            res, build_rows = index_build_phase(args.seed, by_path, build_dir)
         finally:
             shutil.rmtree(build_dir, ignore_errors=True)
+        for key, sub in build_rows.items():
+            extra_rows[key].update(sub)
         emit({"phase": "index_build", **res, "seconds": time.perf_counter() - t})
+
+    if "ivf_flat" in phases:
+        t = time.perf_counter()
+        ivf_dir = build_root / "smoke_ivf_flat"
+        try:
+            res, extra_rows["topk"]["ivf_flat_probe"] = ivf_flat_phase(args.seed, by_path,
+                                                                       ivf_dir)
+        finally:
+            shutil.rmtree(ivf_dir, ignore_errors=True)
+        emit({"phase": "ivf_flat", **res, "seconds": time.perf_counter() - t})
+
+    if "ingest" in phases:
+        t = time.perf_counter()
+        ingest_dir = build_root / "smoke_ingest"
+        try:
+            res = ingest_phase(args.seed, by_path, ingest_dir)
+        finally:
+            shutil.rmtree(ingest_dir, ignore_errors=True)
+        emit({"phase": "ingest", **res, "phase_seconds": time.perf_counter() - t})
 
     art = Path(__file__).resolve().parent / "build" / "smoke_index"
     enc_dir = art.parent / "smoke_encoder"
@@ -1879,8 +2265,8 @@ def main() -> int:
                 rows.update(probe_and_scan_rows(idx, ctx["q_sets"]["text"], 16, 10))
                 if "flat" in phases:
                     rows["topk"]["flat"] = flat_rows["topk_flat"]
-                if build_row is not None:
-                    rows["topk"]["index_build"] = build_row
+                for key, sub in extra_rows.items():
+                    rows[key].update(sub)
                 if "stages_batch256" in phases:
                     t = time.perf_counter()
                     res = stage_split(ctx)
@@ -1960,7 +2346,7 @@ def main() -> int:
 
     if set(KERNELS) <= set(rows):
         emit({"kernels": kernels_line(rows, by_path)})
-    elif {"kernels", "flat", "index_build", "index", "serve", "hybrid", "host",
+    elif {"kernels", "flat", "index_build", "ivf_flat", "index", "serve", "hybrid", "host",
           "legacy"} <= phases:
         raise AssertionError(f"kernel rows missing: {set(KERNELS) - set(rows)}")
     print(smi, flush=True)

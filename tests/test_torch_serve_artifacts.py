@@ -284,6 +284,29 @@ def test_stage_timer_report_has_the_jax_shape(tmp_path):
     assert json.loads((tmp_path / "r" / "report.json").read_text())["stages"]
 
 
+def test_stage_timer_records_counter_deltas():
+    n = {"topk": 3, "adc_topk": 5}
+    timer = StageTimer(counters=lambda: dict(n))
+    with timer.stage("oracle") as rec:
+        n["topk"] += 2
+        rec["rows"] = 7
+    with pytest.raises(KeyError):
+        with timer.stage("sweep"):
+            n["adc_topk"] += 1
+            raise KeyError("x")
+    with timer.stage("idle"):
+        pass
+    one, two, idle = timer.report()["stages"]
+    assert one["launches"] == {"topk": 2} and one["rows"] == 7
+    assert two["launches"] == {"adc_topk": 1} and "error" in two
+    assert idle["launches"] == {}
+    # without counters a record has the JAX package's keys only
+    plain = StageTimer()
+    with plain.stage("encode"):
+        pass
+    assert sorted(plain.stages[0]) == ["seconds", "stage"]
+
+
 def test_profile_scope_writes_a_chrome_trace_only_when_asked(tmp_path, monkeypatch):
     import torch
 
