@@ -12,7 +12,10 @@ here today:
   (fused scan + per-slot top-k kernel over transposed lists, raw scan
   kernels over row-major legacy lists) over lists on the card, gathered
   from the memmap per batch (host storage), or both (hybrid) -> ragged
-  per-query merge -> host-side position resolution -> ids / HTTP;
+  per-query merge -> host-side position resolution -> ids / HTTP; the
+  same path corpus-sharded over a ``torch.distributed`` mesh (one rank per
+  card or process, each holding the lists ``l % W == r``, merged by one
+  all-gather; HTTP on rank 0, the other ranks following its searches);
 - flat search: ``FlatIndex`` (exact streaming top-k), and the fast-mode
   top-k that ``bench.py``'s configuration runs;
 - the index build: ``IVFPQIndex.train`` (OPQ, spherical k-means with the
@@ -25,7 +28,9 @@ here today:
 - ``index``    — CSR list artifacts (same on-disk format 3) and their
                  packing, the IVF-PQ index (search and build), k-means,
                  PQ, OPQ and the flat index.
-- ``parallel`` — the top-k merge over corpus parts.
+- ``parallel`` — the corpus mesh (``torch.distributed``: ranks, the
+                 collectives, row and list sharding) and the top-k merge
+                 over corpus parts, across ranks by one all-gather.
 - ``models`` — the stella encoder (Qwen2 backbone, pooling, MRL head),
                its embedding pipeline, weight loading (safetensors, HF
                snapshots, the JAX package's parameters) and the

@@ -21,9 +21,15 @@ same artifact layout::
 
 Run as ``python -m abstracts_search_tpu_torch.cli``. Everything runs on
 the CUDA card unless ``--device cpu`` asks for the plain-PyTorch route.
-One process drives one device: the JAX CLI's multi-host options
-(``--coordinator``, ``--num-processes``, ``--process-id``) are refused
-until the port's multi-GPU slice.
+
+``serve`` and ``search`` also run corpus-sharded over a
+``torch.distributed`` mesh, one process per rank: ``--coordinator
+HOST:PORT --num-processes W --process-id R`` on each (or torchrun's
+environment), ``--dist-backend nccl`` (the default on the card: one rank
+per card) or ``gloo`` (ranks that share a card; the default with
+``--device cpu``). Rank ``R`` serves the lists ``l % W == R`` on
+``--device`` (default ``cuda:<local rank>``); rank 0 holds the HTTP
+server. Every other command runs in one process and refuses the mesh.
 
 Env (reference-compatible): SIDECARSEARCH_MODEL,
 SIDECARSEARCH_TRUST_REMOTE_CODE, MODEL_NAME, PROMPT_NAME,
@@ -43,6 +49,9 @@ from pathlib import Path
 from .config import load_config
 
 logger = logging.getLogger("astpu")
+
+# the commands that run over a mesh
+MESH_COMMANDS = ("serve", "search")
 
 
 def _driver(args, cfg):
@@ -338,17 +347,24 @@ def cmd_search(args, cfg):
     from .serve.engine import SearchEngine
 
     engine = SearchEngine.from_artifacts(cfg, index_dir=cfg.index_dir, embedder=args.embedder,
-                                         hydrate=not args.no_hydrate, device=args.device)
-    for r in engine.search(args.query, k=args.k):
-        print(json.dumps(r))
+                                         hydrate=not args.no_hydrate, device=args.device,
+                                         mesh=args.mesh)
+    if args.mesh is not None and args.mesh.rank != 0:
+        engine.follow()
+        return
+    try:
+        for r in engine.search(args.query, k=args.k):
+            print(json.dumps(r))
+    finally:
+        engine.stop_followers()
 
 
 def cmd_serve(args, cfg):
-    from .serve.app import run_server
+    from .serve.app import run_server, stop_on_signals
 
     run_server(cfg, host=args.host, port=args.port, embedder=args.embedder,
-               device=args.device, micro_batch=not args.no_micro_batch,
-               micro_batch_workers=args.micro_batch_workers)
+               device=args.device, mesh=args.mesh, micro_batch=not args.no_micro_batch,
+               micro_batch_workers=args.micro_batch_workers, on_bound=stop_on_signals)
 
 
 # -- parser ----------------------------------------------------------------------
@@ -360,10 +376,16 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="device of the indexes, the encoder and virtual corpora "
                         "(default: the CUDA card; 'cpu' for the plain-PyTorch route)")
-    # the JAX CLI's multi-host entry; refused until the multi-GPU slice
-    p.add_argument("--coordinator", metavar="HOST:PORT", help=argparse.SUPPRESS)
-    p.add_argument("--num-processes", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--process-id", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--coordinator", metavar="HOST:PORT",
+                   help="rank 0's rendezvous address: serve/search corpus-sharded over a "
+                        "torch.distributed mesh, one process per rank")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="ranks in the mesh (with --coordinator)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (with --coordinator; default: $RANK)")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="collectives backend (default: nccl on the card, one rank per "
+                        "card; gloo for ranks that share a card, and with --device cpu)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sp = sub.add_parser("init", help="create an empty embedding store")
@@ -475,6 +497,29 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _join_mesh(args):
+    """This process's rank of the mesh that ``--coordinator`` (or
+    torchrun's environment) names, or None for a one-process run. Only
+    ``MESH_COMMANDS`` run over a mesh; the rest are refused before any
+    rank joins."""
+    from .parallel.mesh import init_distributed
+
+    torchrun = all(v in os.environ for v in ("MASTER_ADDR", "WORLD_SIZE", "RANK"))
+    if args.coordinator is None and not torchrun:
+        if args.num_processes or args.process_id is not None or args.dist_backend:
+            raise ValueError("--num-processes/--process-id/--dist-backend need "
+                             "--coordinator HOST:PORT (or torchrun's environment)")
+        return None
+    if args.cmd not in MESH_COMMANDS:
+        raise ValueError(f"astpu-torch {args.cmd} runs in one process: over a mesh the port "
+                         f"runs {', '.join(MESH_COMMANDS)}; its multi-GPU build (the sharded "
+                         f"k-means, PQ, fill and driver) is slice 8 of ROADMAP.md")
+    mesh = init_distributed(args.coordinator, args.num_processes, args.process_id,
+                            args.dist_backend, device=args.device)
+    args.device = str(mesh.device)
+    return mesh
+
+
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
     if not logging.getLogger().handlers:
@@ -482,14 +527,15 @@ def main(argv=None) -> int:
                             format="%(asctime)s %(name)s %(levelname)s %(message)s")
     cfg = load_config()
     try:
-        if args.coordinator or args.num_processes or args.process_id is not None:
-            raise ValueError("--coordinator/--num-processes/--process-id: the port drives "
-                             "one device from one process; multi-process runs come with "
-                             "its multi-GPU support")
+        args.mesh = _join_mesh(args)
         args.fn(args, cfg)
     except (FileExistsError, FileNotFoundError, ValueError, RuntimeError) as e:
         print(f"astpu: error: {e}", file=sys.stderr)
         return 1
+    if args.mesh is not None:
+        from .parallel.mesh import shutdown_distributed
+
+        shutdown_distributed(args.mesh)
     return 0
 
 

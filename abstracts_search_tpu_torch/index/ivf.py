@@ -1,4 +1,5 @@
-"""IVF-Flat index on one card: coarse quantizer + CSR lists of raw rows.
+"""IVF-Flat index: coarse quantizer + CSR lists of raw rows, on one card
+or sharded over a mesh.
 
 The port of the JAX package's ``index/ivf.py`` (faiss ``IndexIVFFlat``'s
 place). Train = k-means (``index/kmeans.py``, spherical or plain L2);
@@ -20,9 +21,12 @@ einsum at HIGHEST precision under ``lax.map``); here it is a plain f32
 ``torch.matmul`` over the gathered tiles, windowed so that no batch's
 tiles materialize at once. Plain-L2 lists carry a ``-||x||^2 / 2`` bias
 column (padded to a 128-column multiple, as the JAX package pads it) and
-queries a ones column, so the inner product ranks by exact L2. One card
-holds every list: the JAX package's all-gather merge over a mesh
-(``merge_topk_all_gather``) is the identity here.
+queries a ones column, so the inner product ranks by exact L2.
+
+Over a mesh (``parallel/mesh.py``) rank ``r`` of ``W`` installs only the
+lists ``l % W == r`` (``rank_shard``: its segments gathered from the
+memmap), probes like every rank, scans its own probed tiles, and one
+all-gather merges the ranks' top-k lists (``merge_topk_all_gather``).
 """
 
 from __future__ import annotations
@@ -33,11 +37,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..device import assert_exact_f32, resolve_device
+from ..device import assert_exact_f32
 from ..ops.topk import streaming_topk
+from ..parallel.mesh import Mesh, index_mesh
+from ..parallel.topk_merge import merge_topk_all_gather
 from .ivfpq import _json_safe
 from .kmeans import KMeans, _assign_operands, _normalize_rows, _round_up
-from .lists import CSRLists, load_lists, pack_lists, ragged_ranges, save_lists
+from .lists import CSRLists, load_lists, pack_lists, ragged_ranges, rank_shard, save_lists
 
 NEG_INF = float("-inf")
 
@@ -51,10 +57,12 @@ class IVFFlatIndex:
     INSTALL_SEGS = 1024
 
     def __init__(self, n_lists: int, *, seg_size: int = 512, chunk: int = 1024,
-                 spherical: bool = True, impl: str = "auto", seed: int = 0, device=None):
+                 spherical: bool = True, impl: str = "auto", seed: int = 0, device=None,
+                 mesh: Mesh | None = None):
         if impl not in ("auto", "cuda", "torch"):
             raise ValueError(f"impl={impl!r}")
-        self.device = resolve_device(device)
+        self.mesh = index_mesh(mesh, device)
+        self.device = self.mesh.device
         self.n_lists = n_lists
         self.seg_size = seg_size
         self.chunk = chunk
@@ -80,11 +88,13 @@ class IVFFlatIndex:
     def train(self, sample: np.ndarray, *, iters: int = 10) -> dict:
         """Train the coarse quantizer; returns its stats (the
         ``untuned.json`` analog)."""
+        self.mesh.refuse_build("train")
         self.kmeans.fit(sample, iters=iters)
         return self.kmeans.stats
 
     def fill(self, vectors: np.ndarray, positions: np.ndarray | None = None) -> None:
         """Assign and pack every vector into the CSR lists."""
+        self.mesh.refuse_build("fill")
         if not self.is_trained:
             raise RuntimeError("train() before fill()")
         if self.packed is not None:
@@ -101,23 +111,35 @@ class IVFFlatIndex:
     def _install(self, packed: CSRLists) -> None:
         """Lists to the card: [n_segs, SEG, D] f32, or [n_segs, SEG,
         round_up(D + 1, 128)] with the plain-L2 bias column. Dead padding
-        rows are zero (bias 0) and stay masked by ``seg_valid``."""
+        rows are zero (bias 0) and stay masked by ``seg_valid``. Over a
+        mesh of several ranks only this rank's segments, compacted, with
+        its local CSR."""
         self.packed = packed
         self.n = packed.n_rows
         n_segs, seg, d = packed.data.shape
+        segs = None
+        start, cnt = packed.seg_start, packed.seg_cnt
+        if self.mesh.size > 1:
+            segs, start, cnt = rank_shard(packed.seg_start, packed.seg_cnt, self.mesh.size,
+                                          self.mesh.rank)
+            n_segs = len(segs)
         width = d if self.spherical else _round_up(d + 1, 128)
         data = torch.zeros((n_segs, seg, width), dtype=torch.float32, device=self.device)
         for lo in range(0, n_segs, self.INSTALL_SEGS):
-            x = torch.from_numpy(np.array(packed.data[lo:lo + self.INSTALL_SEGS],
-                                          np.float32)).to(self.device)
+            rows = (slice(lo, lo + self.INSTALL_SEGS) if segs is None
+                    else segs[lo:lo + self.INSTALL_SEGS])
+            x = torch.from_numpy(np.array(packed.data[rows], np.float32)).to(self.device)
             data[lo:lo + len(x), :, :d] = x
             if not self.spherical:
                 data[lo:lo + len(x), :, d] = -0.5 * (x * x).sum(-1)
         self._data = data
-        self._row_ids = torch.from_numpy(np.array(packed.row_ids, np.int64)).to(self.device)
-        self._seg_valid = torch.from_numpy(np.array(packed.seg_valid, np.int64)).to(self.device)
-        self._seg_start_h = np.asarray(packed.seg_start, np.int64)
-        self._seg_cnt_h = np.asarray(packed.seg_cnt, np.int64)
+        rows = slice(None) if segs is None else segs
+        self._row_ids = torch.from_numpy(np.array(packed.row_ids[rows], np.int64)).to(
+            self.device)
+        self._seg_valid = torch.from_numpy(np.array(np.asarray(packed.seg_valid)[rows],
+                                                    np.int64)).to(self.device)
+        self._seg_start_h = np.asarray(start, np.int64)
+        self._seg_cnt_h = np.asarray(cnt, np.int64)
         self._c_pad = self.kmeans._centroids_padded()
 
     # -- search --------------------------------------------------------------
@@ -150,6 +172,9 @@ class IVFFlatIndex:
         (score desc, candidate order asc). -> (values, positions)."""
         qn, maxcnt = soq.shape
         seg, width = self._data.shape[1], self._data.shape[2]
+        if self._data.shape[0] == 0:        # a rank that holds no list
+            return (torch.full((qn, k), NEG_INF, device=self.device),
+                    torch.full((qn, k), -1, dtype=torch.int64, device=self.device))
         per_q = maxcnt * seg * width * 4
         win = max(1, self.SCAN_WINDOW_BYTES // per_q)
         vals = torch.empty((qn, k), dtype=torch.float32, device=self.device)
@@ -180,7 +205,8 @@ class IVFFlatIndex:
 
     def search(self, queries: np.ndarray, k: int, *, nprobe: int = 8):
         """-> (scores [Q, k] f32, corpus positions [Q, k] int64; -1 = no
-        candidate) as numpy arrays."""
+        candidate) as numpy arrays. Over a mesh this is a collective:
+        every rank calls it with the same arguments."""
         if self._data is None:
             raise RuntimeError("fill() before search()")
         assert_exact_f32()
@@ -198,6 +224,8 @@ class IVFFlatIndex:
                 qa[:, qt.shape[1]] = 1.0
                 qt = qa
             v, pos = self._scan(qt, soq, k)
+            if self.mesh.collective:
+                v, pos, _ = merge_topk_all_gather(v, pos, k, self.mesh)
         return v.cpu().numpy(), pos.cpu().numpy()
 
     # -- artifacts -----------------------------------------------------------
@@ -216,13 +244,15 @@ class IVFFlatIndex:
             save_lists(self.packed, d / "lists")
 
     @classmethod
-    def load(cls, directory: str | Path, *, device=None, **kw) -> "IVFFlatIndex":
+    def load(cls, directory: str | Path, *, device=None, mesh: Mesh | None = None,
+             **kw) -> "IVFFlatIndex":
         """Open JAX- or port-written artifacts on ``device`` (default: the
-        card); ``kw`` goes to the constructor."""
+        card), or on this rank of ``mesh``, which reads only its own
+        lists; ``kw`` goes to the constructor."""
         d = Path(directory)
         meta = json.loads((d / "meta.json").read_text())
         idx = cls(meta["n_lists"], seg_size=meta["seg_size"], spherical=meta["spherical"],
-                  device=device, **kw)
+                  device=device, mesh=mesh, **kw)
         idx.kmeans.centroids = np.load(d / "centroids.npy")
         idx.kmeans.stats = meta.get("kmeans_stats", {})
         if (d / "lists").is_dir():

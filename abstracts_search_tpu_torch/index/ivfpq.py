@@ -35,7 +35,17 @@ Where the codes live (``storage``):
   less ``AUTO_HEADROOM_BYTES``, else ``"hybrid"`` with the hot budget at
   that ceiling less the centroids; ``"device"`` on the CPU.
 
-Every storage runs the same scan body (``_scan_slots``). Artifacts are
+Every storage runs the same scan body (``_scan_slots``).
+
+Over a mesh (``mesh=``, ``parallel/mesh.py``), rank ``r`` of ``W`` holds
+only the lists ``l % W == r``, in any storage: the resident install
+gathers just its own segments from the memmap, and the host and cold
+gathers read just its own lists. The probe is replicated (every rank
+runs it on the same queries); each rank scans its own slots, resolves
+its winners to corpus positions through the memmap, and one all-gather
+merges the ranks' top-k lists (``merge_topk_all_gather``), so every
+rank returns the same answer. ``W = 1`` without a process group is the
+single-card path, with no collective. Artifacts are
 the JAX package's (``meta.json``, ``centroids.npy``,
 ``pq_centroids.npy``, ``rotation.npy``, ``lists/``); ``load`` opens them
 and ``save`` writes them.
@@ -69,14 +79,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import assert_exact_f32, resolve_device
+from ..device import assert_exact_f32
 from ..ops import _build, launch_counts
 from ..ops.adc import adc_scan, adc_topk
 from ..ops.topk import streaming_topk
+from ..parallel.mesh import Mesh, index_mesh
+from ..parallel.topk_merge import merge_topk_all_gather
 from ..utils.trace import StageTimer
 from .kmeans import KMeans, _normalize_rows, _normalize_rows_t, _round_up
 from .lists import (CSRLists, load_lists, pack_lists, pack_lists_external, ragged_ranges,
-                    save_lists)
+                    rank_shard, save_lists)
 from .opq import OPQ, _rotate
 from .pq import ProductQuantizer
 
@@ -206,6 +218,7 @@ class IVFPQIndex:
         hot_budget_bytes: int = 1 << 30,
         seed: int = 0,
         device=None,
+        mesh: Mesh | None = None,
         _legacy_unnormalized: bool = False,
     ):
         if dim % pq_m:
@@ -218,9 +231,11 @@ class IVFPQIndex:
         if storage not in STORAGES:
             raise ValueError(f"storage={storage!r}: one of {STORAGES}")
         # Scan hits always resolve to corpus positions on the host (the
-        # JAX package's pos_map="host"); its device-resident row ids
-        # serve multi-controller runs, which one card does not need.
-        self.device = resolve_device(device)
+        # JAX package's pos_map="host"); over a mesh each rank resolves
+        # its own winners before the merge, so no rank needs another's
+        # layout or device-resident row ids.
+        self.mesh = index_mesh(mesh, device)
+        self.device = self.mesh.device
         self.n_lists = n_lists
         self.dim = dim
         self.pq_m = pq_m
@@ -270,9 +285,19 @@ class IVFPQIndex:
     def is_trained(self) -> bool:
         return self.kmeans.centroids is not None and self.pq.is_trained
 
-    def _refuse_legacy_mutation(self, op: str) -> None:
+    @property
+    def resident_bytes(self) -> int:
+        """Bytes of codes installed on the device: this rank's resident
+        lists (all of them in device storage on one rank, the hot ones in
+        hybrid, none in host storage)."""
+        codes = getattr(self, "_codes", None)
+        return 0 if codes is None else codes.numel()
+
+    def _refuse_mutation(self, op: str) -> None:
         """A legacy non-spherical artifact is serve-only: building new
-        data under its semantics hits the error a new construction gets."""
+        data under its semantics hits the error a new construction gets.
+        Over a mesh of several ranks the index serves only."""
+        self.mesh.refuse_build(op)
         if not self.spherical:
             raise ValueError(
                 f"cannot {op}() a legacy non-spherical IVFPQIndex: this "
@@ -332,7 +357,7 @@ class IVFPQIndex:
         samples train whole; the rest take ``_train_big``. ``train_stats``
         then holds each step's seconds and kernel launches under
         ``stages`` (``opq``, ``kmeans``, ``pq_residuals``)."""
-        self._refuse_legacy_mutation("train")
+        self._refuse_mutation("train")
         assert_exact_f32()
         timer = StageTimer(counters=launch_counts)
         big = (
@@ -576,7 +601,7 @@ class IVFPQIndex:
         land), spill and pack."""
         from ..utils import prefetch_iterator
 
-        self._refuse_legacy_mutation("fill")
+        self._refuse_mutation("fill")
         assert_exact_f32()
         stream = prefetch_iterator(iter(chunks), depth=prefetch)
         on_card = self.device.type == "cuda"
@@ -642,7 +667,7 @@ class IVFPQIndex:
         chunks: the spill + pack + install tail shared with
         ``fill_stream``. A filled index is not filled again: refills go
         through the empty (trained) artifact."""
-        self._refuse_legacy_mutation("fill")
+        self._refuse_mutation("fill")
         if not self.is_trained:
             raise RuntimeError("train() before fill()")
         if self.packed is not None:
@@ -734,21 +759,23 @@ class IVFPQIndex:
         self.packed = packed
         self.n = packed.n_rows
         seg_bytes = int(np.prod(shape[1:]))
+        # this rank's lists: every list on one rank
+        owned = self.mesh.owned(packed.n_lists)
         if self.storage == "auto":
-            self.storage = self._resolve_auto_storage(packed, seg_bytes)
+            self.storage = self._resolve_auto_storage(packed, seg_bytes, owned)
         self._codes = self._seg_map = None
         self._has_cold = False
         self._seg_start_h = np.asarray(packed.seg_start, np.int64)
         if self.storage == "device":
-            self._install_resident(packed, hot=None)
+            self._install_resident(packed, None if self.mesh.size == 1 else owned)
         else:
             if self.storage == "hybrid":
-                hot = self._pick_hot_lists(packed, seg_bytes)
-                self._install_resident(packed, hot=hot)
-                cnt = np.where(hot, 0, packed.seg_cnt)
+                hot = self._pick_hot_lists(packed, seg_bytes, owned)
+                self._install_resident(packed, hot)
+                cnt = np.where(owned & ~hot, packed.seg_cnt, 0)
                 self._has_cold = bool(cnt.any())
             else:
-                cnt = packed.seg_cnt
+                cnt = np.where(owned, packed.seg_cnt, 0)
             # the CSR counts of the lists served from the memmap
             self._host_cnt = np.asarray(cnt, np.int64)
             self._stage_lock = threading.Lock()
@@ -763,30 +790,35 @@ class IVFPQIndex:
                                     torch.from_numpy(np.asarray(packed.seg_valid, np.int32)[rows])
                                     .to(dev))
 
-    def _install_resident(self, packed: CSRLists, hot) -> None:
-        """Upload every list (``hot`` None) or only the ``hot`` lists'
-        segments, compacted, with a device CSR in which the other lists
-        count 0; ``_seg_map`` maps a compacted segment to its canonical
-        one, so rows still resolve through ``row_ids``."""
+    def _install_resident(self, packed: CSRLists, lists) -> None:
+        """Upload every list (``lists`` None) or only the segments of the
+        ``lists`` (a [n_lists] mask: this rank's lists, of those the hot
+        ones in hybrid storage), compacted in list order, with a device
+        CSR in which the other lists count 0; ``_seg_map`` maps a
+        compacted segment to its canonical one, so rows still resolve
+        through ``row_ids``."""
         dev = self.device
-        if hot is None:
+        if lists is None:
             self._codes = _upload(packed.data, dev)      # [n_segs, MB, SEG] | [n_segs, SEG, MB]
             valid, start, cnt = packed.seg_valid, packed.seg_start, packed.seg_cnt
         else:
-            cnt = np.where(hot, packed.seg_cnt, 0).astype(np.int64)
-            segs, _ = ragged_ranges(packed.seg_start, cnt)   # list order: sorted
-            self._codes = _upload(packed.data, dev, rows=segs)
-            start = np.cumsum(cnt) - cnt
-            valid = np.asarray(packed.seg_valid)[segs]
-            self._seg_map = segs
+            # the masked lists' part of the mesh's shard: only these
+            # segments are read from the memmap
+            shard = rank_shard(packed.seg_start, np.where(lists, packed.seg_cnt, 0),
+                               self.mesh.size, self.mesh.rank)
+            self._codes = _upload(packed.data, dev, rows=shard.segs)
+            start, cnt = shard.seg_start, shard.seg_cnt
+            valid = np.asarray(packed.seg_valid)[shard.segs]
+            self._seg_map = shard.segs
         self._seg_valid = torch.from_numpy(np.asarray(valid, np.int32)).to(dev)
         self._seg_start = torch.from_numpy(np.asarray(start, np.int64)).to(dev)
         self._seg_cnt = torch.from_numpy(np.asarray(cnt, np.int64)).to(dev)
 
-    def _resolve_auto_storage(self, packed: CSRLists, seg_bytes: int) -> str:
+    def _resolve_auto_storage(self, packed: CSRLists, seg_bytes: int, owned) -> str:
+        """"device" or "hybrid" by this rank's lists against its own card."""
         if self.device.type != "cuda":
             return "device"
-        payload = int(np.asarray(packed.seg_cnt, np.int64).sum()) * seg_bytes
+        payload = int(np.asarray(packed.seg_cnt, np.int64)[owned].sum()) * seg_bytes
         free, _ = torch.cuda.mem_get_info(self.device)
         storage, budget = auto_storage(payload, free, self.n_lists * self.dim * 4,
                                        self.AUTO_HEADROOM_BYTES)
@@ -798,16 +830,16 @@ class IVFPQIndex:
                         budget / 2**30)
         return storage
 
-    def _pick_hot_lists(self, packed: CSRLists, seg_bytes: int) -> np.ndarray:
-        """Largest lists first until the hot budget is spent (big lists
-        are probed most and cost most). Row ids stay on the host, so a
-        segment costs its payload bytes; one card holds every hot list."""
-        cnt = np.asarray(packed.seg_cnt, np.int64)
+    def _pick_hot_lists(self, packed: CSRLists, seg_bytes: int, owned) -> np.ndarray:
+        """This rank's largest lists first until the hot budget (of its
+        own card) is spent: big lists are probed most and cost most. Row
+        ids stay on the host, so a segment costs its payload bytes."""
+        cnt = np.where(owned, packed.seg_cnt, 0).astype(np.int64)
         order = np.argsort(-cnt, kind="stable")
         cum = np.cumsum(cnt[order] * seg_bytes)
         hot = np.zeros(packed.n_lists, bool)
         hot[order[cum <= self.hot_budget_bytes]] = True
-        return hot
+        return hot & owned
 
     def _check_kernels(self, codes: torch.Tensor, seg_valid: torch.Tensor) -> None:
         """Build the kernels and hold each against its plain version on
@@ -928,8 +960,6 @@ class IVFPQIndex:
         v, order = torch.sort(qv, dim=1, descending=True, stable=True)
         v = v[:, :k]
         rows = torch.gather(qrow, 1, order[:, :k])
-        # (The JAX package gathers per-device top-k over its mesh here;
-        # one card holds every resident list.)
         return v, torch.where(v > NEG_INF, rows, -1)
 
     def _stage(self, arr: np.ndarray, rows=None) -> torch.Tensor:
@@ -990,14 +1020,32 @@ class IVFPQIndex:
 
     def search(self, queries: np.ndarray, k: int, *, nprobe: int = 8):
         """-> (scores [Q, k] f32, corpus positions [Q, k] int64, -1
-        padded) as numpy arrays."""
+        padded) as numpy arrays. Over a mesh this is a collective: every
+        rank calls it with the same arguments, scans its own lists, and
+        gets the merged answer."""
         if self.packed is None:
             raise RuntimeError("no lists installed: load a filled index")
         assert_exact_f32()
+        nprobe = min(nprobe, self.n_lists)
+        v, pos = self._search_shard(queries, k, nprobe)
+        if not self.mesh.collective:
+            return v, pos
+        st = self.last_scan_stats
+        mine = torch.tensor([st["live_slots"], st.get("cold_live_slots", 0)])
+        v, pos, ranks = merge_topk_all_gather(torch.from_numpy(v), torch.from_numpy(pos), k,
+                                              self.mesh, stats=mine)
+        st.update(live_slots=int(ranks[:, 0].sum()), live_slots_by_rank=ranks[:, 0].tolist())
+        if "cold_live_slots" in st:
+            st["cold_live_slots"] = int(ranks[:, 1].sum())
+        return v.numpy(), pos.numpy()
+
+    def _search_shard(self, queries: np.ndarray, k: int, nprobe: int):
+        """This rank's lists' top-k (every list on one rank): the probe,
+        the slot list, the scan and the merge of its slots, then the
+        winners' corpus positions. -> numpy (scores, positions)."""
         q = np.asarray(queries, np.float32)
         if self.spherical:
             q = _normalize_rows(q)
-        nprobe = min(nprobe, self.n_lists)
         qt = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
         cold = None
         with torch.inference_mode():
@@ -1070,9 +1118,12 @@ class IVFPQIndex:
             save_lists(self.packed, target)
 
     @classmethod
-    def load(cls, directory: str | Path, *, device=None, **kw) -> "IVFPQIndex":
+    def load(cls, directory: str | Path, *, device=None, mesh: Mesh | None = None,
+             **kw) -> "IVFPQIndex":
         """Open JAX- or port-written artifacts on ``device`` (default:
-        the CUDA card). ``kw`` goes to the constructor (``storage``,
+        the CUDA card), or on this rank of ``mesh`` (its device; the
+        canonical layout reopens on any mesh size, each rank reading only
+        its own lists). ``kw`` goes to the constructor (``storage``,
         ``hot_budget_bytes``, ``impl``, ...). Resident lists stream from
         the memmap to the device. An empty (trained, unfilled) artifact
         opens ready for ``fill_stream``."""
@@ -1084,7 +1135,8 @@ class IVFPQIndex:
         idx = cls(meta["n_lists"], meta["dim"], pq_m=meta["pq_m"],
                   pq_nbits=meta["pq_nbits"], use_opq=meta["use_opq"],
                   seg_size=meta["seg_size"], spherical=meta["spherical"],
-                  device=device, _legacy_unnormalized=not meta["spherical"], **kw)
+                  device=device, mesh=mesh, _legacy_unnormalized=not meta["spherical"],
+                  **kw)
         idx.set_params(np.load(d / "centroids.npy"), np.load(d / "pq_centroids.npy"),
                        np.load(d / "rotation.npy"))
         idx.train_stats = meta.get("train_stats", {})

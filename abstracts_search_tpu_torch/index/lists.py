@@ -19,8 +19,10 @@ scan is work-proportional. The index fill packs rows into this layout in
 RAM (``pack_lists``) or straight into the on-disk artifact
 (``pack_lists_external``: a one-pass sorted scatter, or a two-pass
 distribution sort past ``bucket_bytes``); ``resegment_lists`` rewrites
-an artifact at a smaller segment size. Host numpy throughout: the files
-they write equal the JAX package's byte for byte.
+an artifact at a smaller segment size. Over a mesh, ``shard_lists``
+splits the lists by ``list id % W`` (``rank_shard``: one rank's part,
+without reading any payload). Host numpy throughout: the files they
+write and the shards equal the JAX package's byte for byte.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -177,6 +180,68 @@ def _seg_valid(counts, seg_cnt, seg_start, n_segs, seg_size) -> np.ndarray:
             counts[seg_list] - seg_idx * seg_size, 0, seg_size
         ).astype(np.int32)
     return seg_valid
+
+
+class RankShard(NamedTuple):
+    """One rank's lists of a mesh of ``ndev`` (list ``l`` on rank ``l %
+    ndev``), compacted: its segments contiguous in owned-list order."""
+
+    segs: np.ndarray       # [n_local] int64: the canonical segment of each local one
+    seg_start: np.ndarray  # [n_lists] int32: local start of each owned list, 0 elsewhere
+    seg_cnt: np.ndarray    # [n_lists] int32: segments of each owned list, 0 elsewhere
+
+
+def rank_shard(seg_start: np.ndarray, seg_cnt: np.ndarray, ndev: int, rank: int) -> RankShard:
+    """Rank ``rank``'s part of the canonical CSR (``seg_start``,
+    ``seg_cnt``): which segments it holds and its local CSR. Reads no
+    payload, so a rank gathers only its own segments from the memmap."""
+    n_lists = len(seg_cnt)
+    owned = np.arange(rank, n_lists, ndev, dtype=np.int64)
+    cnts = np.asarray(seg_cnt)[owned].astype(np.int64)
+    segs, _ = ragged_ranges(np.asarray(seg_start)[owned], cnts)
+    start = np.zeros(n_lists, np.int32)
+    cnt = np.zeros(n_lists, np.int32)
+    start[owned] = (np.cumsum(cnts) - cnts).astype(np.int32)
+    cnt[owned] = cnts.astype(np.int32)
+    return RankShard(segs, start, cnt)
+
+
+@dataclasses.dataclass
+class DeviceShards:
+    """Every rank's part of the lists, padded to the widest rank's
+    segment count (the JAX package's per-device install arrays)."""
+
+    data: np.ndarray            # [ndev, n_segs_pad, *block]
+    row_ids: np.ndarray | None  # [ndev, n_segs_pad, SEG] int32, -1 pad
+    seg_valid: np.ndarray       # [ndev, n_segs_pad] int32
+    seg_start: np.ndarray       # [ndev, n_lists] int32: device-local CSR
+    seg_cnt: np.ndarray         # [ndev, n_lists] int32
+    seg_canon: np.ndarray       # [ndev, n_segs_pad] int64: local -> canonical segment
+
+
+def shard_lists(csr: CSRLists, ndev: int, *, with_row_ids: bool = True) -> DeviceShards:
+    """Shard the canonical lists over ``ndev`` ranks (list id % ndev). A
+    pure function of (csr, ndev), so the same artifact reopens on any
+    mesh size; its arrays equal the JAX package's byte for byte. A rank
+    that serves installs only its own part (``rank_shard``)."""
+    shards = [rank_shard(csr.seg_start, csr.seg_cnt, ndev, d) for d in range(ndev)]
+    n_segs_pad = max(max((len(s.segs) for s in shards), default=0), 1)
+    blk = csr.data.shape[1:]
+    data = np.zeros((ndev, n_segs_pad) + blk, csr.data.dtype)
+    valid = np.zeros((ndev, n_segs_pad), np.int32)
+    canon = np.zeros((ndev, n_segs_pad), np.int64)
+    rows = np.full((ndev, n_segs_pad, csr.seg_size), -1, np.int32) if with_row_ids else None
+    for d, s in enumerate(shards):
+        n = len(s.segs)
+        canon[d, :n] = s.segs
+        if n:
+            data[d, :n] = csr.data[s.segs]
+            valid[d, :n] = np.asarray(csr.seg_valid)[s.segs]
+            if with_row_ids:
+                rows[d, :n] = csr.row_ids[s.segs]
+    return DeviceShards(data=data, row_ids=rows, seg_valid=valid,
+                        seg_start=np.stack([s.seg_start for s in shards]),
+                        seg_cnt=np.stack([s.seg_cnt for s in shards]), seg_canon=canon)
 
 
 def pack_lists_external(

@@ -438,7 +438,13 @@ class StellaEmbedder:
         return self.pipeline.embed_queries(texts)
 
 
-def get_embedder(name: str, cfg: Config, device=None):
+def get_embedder(name: str, cfg: Config, device=None, mesh=None):
+    """The query encoder ``name`` ("hash", "stella" or "auto") on
+    ``device``. Over a mesh with a process group only rank 0 encodes
+    (the whole encoder, on its card) and broadcasts the query vectors:
+    the other ranks get None."""
+    if mesh is not None and mesh.collective and mesh.rank != 0:
+        return None
     if name == "hash":
         return HashEmbedder(cfg.embed_dim)
     if name == "stella":

@@ -2,18 +2,21 @@
 
 A minimal web page at ``/``, a JSON API at ``GET /search?q=...&k=10``,
 batches at ``POST /search {"queries": [...], "k": 10}`` and a liveness
-probe at ``/healthz``.
+probe at ``/healthz``. Over a mesh the server lives on rank 0 and the
+other ranks follow its searches (``run_server``).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import signal
+import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..config import Config, load_config
-from .engine import SearchEngine
+from .engine import MAX_K, SearchEngine
 
 logger = logging.getLogger(__name__)
 
@@ -49,6 +52,15 @@ async function go(){
 </script></body></html>"""
 
 
+def _parse_k(raw) -> int | None:
+    """A request's k, capped at ``MAX_K``; None unless an integer >= 1."""
+    try:
+        k = int(raw)
+    except (TypeError, ValueError):
+        return None
+    return min(k, MAX_K) if k >= 1 else None
+
+
 def make_handler(engine: SearchEngine, batcher=None):
     """``batcher``: optional MicroBatcher — concurrent GET /search
     requests fold into one batched search (serve/batcher.py)."""
@@ -72,9 +84,12 @@ def make_handler(engine: SearchEngine, batcher=None):
                 if not query:
                     self._send(400, b'{"error":"missing q"}', "application/json")
                     return
+                k = _parse_k((qs.get("k") or ["10"])[0])
+                if k is None:
+                    self._send(400, b'{"error":"k must be an integer >= 1"}', "application/json")
+                    return
                 try:
-                    k = int((qs.get("k") or ["10"])[0])
-                    results = single(query, k=min(k, 100))
+                    results = single(query, k=k)
                     body = json.dumps({"query": query, "results": results}).encode()
                     self._send(200, body, "application/json")
                 except Exception as e:
@@ -100,7 +115,10 @@ def make_handler(engine: SearchEngine, batcher=None):
                     self._send(400, b'{"error":"queries must be a list of strings"}',
                                "application/json")
                     return
-                k = min(int(body.get("k", 10)), 100)
+                k = _parse_k(body.get("k", 10))
+                if k is None:
+                    self._send(400, b'{"error":"k must be an integer >= 1"}', "application/json")
+                    return
                 results = engine.search_batch(queries[:256], k=k)
                 self._send(200, json.dumps({"results": results}).encode(),
                            "application/json")
@@ -115,26 +133,54 @@ def make_handler(engine: SearchEngine, batcher=None):
     return Handler
 
 
+def stop_on_signals(server) -> None:
+    """Shut ``server`` down on SIGTERM or SIGINT, so that ``run_server``
+    ends through its ``finally`` (the batcher closes, a mesh's followers
+    stop) and returns. Call from the main thread, e.g. as ``on_bound``."""
+    def handler(signum, frame):
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, handler)
+
+
 def run_server(cfg: Config | None = None, *, engine: SearchEngine | None = None,
-               embedder: str = "auto", device=None, host: str = "127.0.0.1",
+               embedder: str = "auto", device=None, mesh=None, host: str = "127.0.0.1",
                port: int = 7860, micro_batch: bool = True, micro_batch_workers: int = 4,
                on_bound=None) -> None:
     """Serve until ``server.shutdown()``. Without ``engine``, build it
     from ``cfg``'s artifact directory on ``device`` (the card by
-    default), the ``embedder`` beside the index on that device
-    (``SearchEngine.from_artifacts``; ``cfg`` defaults to
-    ``load_config()``). ``on_bound(server)`` is
+    default) or on this rank of ``mesh``, the ``embedder`` beside the
+    index on that device (``SearchEngine.from_artifacts``; ``cfg``
+    defaults to ``load_config()``). ``on_bound(server)`` is
     called once the socket is bound, e.g. to learn the port picked for
-    ``port=0`` or to keep a handle for shutdown from another thread."""
+    ``port=0`` or to keep a handle for shutdown from another thread.
+
+    Over a mesh (the engine's) every rank calls this: the HTTP server,
+    the micro-batcher and the id map live on rank 0, which pings idle
+    followers within the collective timeout and stops them when it ends;
+    the other ranks run the engine's follower loop. A failed collective
+    shuts the server down and raises."""
     from .batcher import MicroBatcher
 
     if engine is None:
         cfg = cfg if cfg is not None else load_config()
         engine = SearchEngine.from_artifacts(cfg, index_dir=cfg.index_dir, embedder=embedder,
-                                             device=device)
+                                             device=device, mesh=mesh)
+    mesh = engine.mesh
+    collective = mesh is not None and mesh.collective
+    if collective and mesh.rank != 0:
+        engine.follow()
+        return
     batcher = (MicroBatcher(engine, workers=micro_batch_workers)
                if micro_batch else None)
     server = ThreadingHTTPServer((host, port), make_handler(engine, batcher))
+    stop = threading.Event()
+    if collective:
+        engine.on_failure = lambda: threading.Thread(target=server.shutdown,
+                                                     daemon=True).start()
+        threading.Thread(target=engine.keep_followers_alive, args=(stop, mesh.timeout_s / 4),
+                         name="astpu-mesh-keepalive", daemon=True).start()
     if on_bound is not None:
         on_bound(server)
     logger.info("serving on http://%s:%d%s", host, server.server_address[1],
@@ -142,6 +188,10 @@ def run_server(cfg: Config | None = None, *, engine: SearchEngine | None = None,
     try:
         server.serve_forever()
     finally:
+        stop.set()
         server.server_close()
         if batcher is not None:
             batcher.close()
+        engine.stop_followers()
+    if engine.failed is not None:
+        raise RuntimeError(f"a rank of the mesh failed: {engine.failed}")

@@ -11,6 +11,10 @@ the single-worker behaviour; the search runs outside the mutex, so one
 batch's host work (encoding, id resolution) overlaps another's device
 work.
 
+Over a mesh the engine serializes its collective sections behind one
+lock (``SearchEngine._lead``): two workers never interleave collectives,
+while their gathering, encoding and hydration stay concurrent.
+
 The JAX package pads each batch to a power of two so its compiled
 program shapes stay few; PyTorch runs eagerly, so batches go to the
 engine at their real size.

@@ -75,7 +75,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
           filtered out, embed_s, stall_s, rows/s. Checks: a second
           target_build upserts 0 rows; 32 stored vectors equal the
           embedder's output on the same batch (atol 1e-5); the native and
-          the Python filter keep the same records.
+          the Python filter keep the same records. Then `astpu-torch dump`
+          of the store to parquet shards, read back through ShardReader,
+          and `astpu-torch recover` into a fresh store: every vector bit
+          for bit in both.
   index   seeded IVF-PQ artifacts at the production geometry (D 1024,
           65,536 lists, OPQ rotation, PQ128x4 nibble-packed transposed,
           SEG 256, 206,962,688 rows, lognormal-skewed list sizes), written
@@ -111,6 +114,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
           gathered per batch), the same checks, batch-16 and batch-256
           times and the bytes gathered; then, in the legacy phase, the
           row-major PQ64x8 artifact in host storage (path host_pq8).
+  sharded the same artifact served corpus-sharded as users serve it: a
+          directory with ids.parquet (206,962,688 ids in row groups, with
+          its binary sidecar; seconds recorded) and params.json at nprobe
+          16; rank processes (this script with --sharded-rank) each run
+          init_distributed, SearchEngine.from_artifacts (its own lists:
+          ~1/W of the codes; the real IdMap on rank 0) and run_server(cfg):
+          rank 0 serves HTTP, the others follow. First W = 4 gloo ranks
+          sharing the one card, then W = 1 under NCCL. Through rank 0's
+          port: the 256 serve texts in one POST and 50 single GETs (hash
+          embedder, nprobe 16, k 10), held against phase serve's results
+          on the same queries (scores bit for bit, ids equal except among
+          equal scores). Per rank: load seconds, resident GiB, kernel-1
+          and kernel-3 launches (each rank must launch both; the resident
+          bytes must sum to the artifact's codes). Then bench.py's
+          FlatIndex row-sharded over the 4 ranks against phase flat's
+          one-process FlatIndex (near-ties counted), kernel 1 on every
+          rank. Each launch runs under a wall-clock limit, each rank under
+          a 120 s collective timeout; a rank that fails fails the phase
+          with every rank's last output. QPS and p50 are labelled as W
+          ranks sharing one card: no scaling number.
   legacy  after the transposed index is freed and deleted: the same
           geometry written row-major (legacy format<=2 layout, raw scan
           kernel for packed rows) and served with the same checks, then a
@@ -118,10 +141,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
           kernel for byte codes) held against its plain path.
 
 Each path (flat, index_build, ivf_flat, ingest, serve, encoder, hybrid,
-host, legacy, legacy_pq8, host_pq8)
+host, sharded, sharded_flat, sharded_nccl, legacy, legacy_pq8, host_pq8)
 runs with every launch count set to 0
-just before it and read just after, and fails if one of its kernels
-never launched. Then a ``{"kernels": [...]}`` line with one row per TPU
+just before it and read just after (in each rank process for the sharded
+paths, summed over the ranks), and fails if one of its kernels never
+launched. Then a ``{"kernels": [...]}`` line with one row per TPU
 kernel (launches from the paths; times and bounds at the inputs the
 paths gave each kernel: ``ms`` by CUDA events around one wrapper call,
 host work between the events included, ``device_ms`` the kernel's own
@@ -645,6 +669,7 @@ def flat_phase(seed: int, by_path: dict):
         return per_batch_ms, flat.search(q_np, FLAT_K)
 
     per_batch_ms, (fv, fp) = drive("flat", path, ("topk_fast", "topk"), by_path)
+    kept = (fv, fp)
 
     got, ref = fast(qs[0]), fast(qs[0], "torch")
     torch.cuda.synchronize()
@@ -695,7 +720,7 @@ def flat_phase(seed: int, by_path: dict):
            "launches": by_path["flat"]}
     del x, flat, qs, got, ref
     release()
-    return res, rows
+    return res, rows, kept
 
 
 # -- the index build (train, fill) at the production geometry ------------------------
@@ -1212,8 +1237,57 @@ def ingest_phase(seed: int, by_path: dict, out: Path) -> dict:
     if err > INGEST_ATOL or res["store_rows"] != rows:
         raise AssertionError(f"stored vectors differ from the embedder's: {err}")
     res["launches"] = by_path["ingest"]
+    res["dump_recover"] = dump_and_recover(drv.store_path, out)
     del pipe, drv
     release()
+    return res
+
+
+def dump_and_recover(store_path: Path, out: Path) -> dict:
+    """``astpu-torch dump`` of the store to parquet shards, read back
+    through ``ShardReader``, then ``astpu-torch recover`` (the driver
+    target, configured by ASTPU_STORE and ASTPU_DATA_DIR) into a fresh
+    store: every vector must come back bit for bit, in both."""
+    import os
+
+    from abstracts_search_tpu_torch.storage.shards import ShardReader
+    from abstracts_search_tpu_torch.storage.sqlite_store import EmbeddingStore
+
+    data_dir, fresh = out / "dump" / "data", out / "recovered.sqlite"
+    t = time.perf_counter()
+    astpu("dump", store_path, data_dir)
+    res = {"dump_seconds": time.perf_counter() - t}
+    reader = ShardReader(data_dir)
+    ids, vecs = [], []
+    for i, v in reader.iter_row_groups():
+        ids += i
+        vecs.append(v)
+    vecs = np.concatenate(vecs)
+    with EmbeddingStore(store_path) as store:
+        stored = np.stack([store.get(i) for i in ids])
+        n_store = len(store)
+    res.update(shards=reader.num_shards, rows=len(ids),
+               reader_bit_equal=bool(np.array_equal(vecs, stored) and len(set(ids)) == n_store))
+    env = {"ASTPU_STORE": str(fresh), "ASTPU_DATA_DIR": str(data_dir)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t = time.perf_counter()
+        astpu("recover")
+        res["recover_seconds"] = time.perf_counter() - t
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with EmbeddingStore(fresh) as store:
+        back = np.stack([store.get(i) for i in ids])
+        res["recovered_rows"] = len(store)
+    res["recovered_bit_equal"] = bool(np.array_equal(back, stored))
+    if not (res["reader_bit_equal"] and res["recovered_bit_equal"]
+            and res["recovered_rows"] == n_store == len(ids)):
+        raise AssertionError(f"dump / ShardReader / recover lost or changed vectors: {res}")
     return res
 
 
@@ -1813,6 +1887,337 @@ def http_round_trip(engine, texts) -> str:
     return "ok"
 
 
+# -- the corpus-sharded query path: W ranks sharing the one card --------------------------
+
+SHARDED_W = 4
+# each rank's collective timeout, and the wall clock of one launch of ranks
+SHARDED_TIMEOUT_S = 120
+SHARDED_LAUNCH_S = 420
+SHARDED_SINGLES = 50
+IDS_ROW_GROUP = 1 << 22
+
+
+def openalex_ids(lo: int, hi: int):
+    """Positions [lo, hi) -> their ids, "W" and 10 digits of a bijection
+    of the position (so a lookup that lands on the wrong row shows), as
+    one Arrow string array built from its buffers."""
+    import pyarrow as pa
+
+    num = 1_000_000_000 + (np.arange(lo, hi, dtype=np.int64) * 2654435761) % (1 << 32)
+    data = np.empty((hi - lo, 11), np.uint8)
+    data[:, 0] = ord("W")
+    for c in range(10, 0, -1):
+        num, d = np.divmod(num, 10)
+        data[:, c] = d + ord("0")
+    offs = np.arange(hi - lo + 1, dtype=np.int32) * 11
+    return pa.Array.from_buffers(pa.string(), hi - lo,
+                                 [None, pa.py_buffer(offs), pa.py_buffer(data)])
+
+
+def id_of(p: int) -> str:
+    return f"W{1_000_000_000 + (int(p) * 2654435761) % (1 << 32)}"
+
+
+def write_ids(path: Path, n: int) -> dict:
+    """ids.parquet for n positions in row groups of IDS_ROW_GROUP, with
+    the binary sidecar IdMap serves from (ids.bin, ids.off and the meta
+    that binds them to the parquet footer), the layout the driver's fill
+    writes. Row groups are made on 8 threads, written in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from abstracts_search_tpu_torch.storage.idmap import write_sidecar_meta
+
+    t = time.perf_counter()
+    bounds = [(lo, min(lo + IDS_ROW_GROUP, n)) for lo in range(0, n, IDS_ROW_GROUP)]
+    pos = 0
+    with ThreadPoolExecutor(8) as ex, \
+            pq.ParquetWriter(path, pa.schema([pa.field("id", pa.string())]),
+                             use_dictionary=False, compression="none",
+                             write_statistics=False) as w, \
+            open(path.with_name(path.stem + ".bin"), "wb") as fb, \
+            open(path.with_name(path.stem + ".off"), "wb") as fo:
+        fo.write(np.uint64(0).tobytes())
+        for i in range(0, len(bounds), 8):
+            for a in ex.map(lambda b: openalex_ids(*b), bounds[i:i + 8]):
+                w.write_table(pa.table({"id": a}))
+                fb.write(memoryview(a.buffers()[2]))
+                offs = np.frombuffer(a.buffers()[1], np.int32)[1:].astype(np.uint64)
+                fo.write((offs + np.uint64(pos)).tobytes())
+                pos += int(offs[-1])
+    write_sidecar_meta(path)
+    return {"rows": n, "row_groups": len(bounds), "seconds": time.perf_counter() - t,
+            "parquet_bytes": path.stat().st_size,
+            "sidecar_bytes": pos + 8 * (n + 1)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_rank(spec: dict) -> int:
+    """One rank, started as users start ``serve`` over a mesh:
+    ``init_distributed``, ``SearchEngine.from_artifacts`` (this rank's
+    lists; the real IdMap on rank 0), then ``run_server(cfg)``: rank 0
+    serves HTTP until SIGTERM, the others follow. Launch counts from 0
+    at rank 0's warm-up to the stop. Then, with ``flat``, bench.py's
+    FlatIndex row-sharded over the same mesh. Writes its numbers to
+    ``spec["out"]``."""
+    from abstracts_search_tpu_torch.config import Config
+    from abstracts_search_tpu_torch.index import FlatIndex
+    from abstracts_search_tpu_torch.parallel import init_distributed, shutdown_distributed
+    from abstracts_search_tpu_torch.serve.app import run_server, stop_on_signals
+    from abstracts_search_tpu_torch.serve.engine import SearchEngine
+
+    rank = spec["rank"]
+    logging.basicConfig(level=logging.INFO,
+                        format=f"%(asctime)s rank {rank} %(name)s %(levelname)s %(message)s")
+    t = time.perf_counter()
+    mesh = init_distributed(f"127.0.0.1:{spec['port']}", spec["world"], rank,
+                            spec["backend"], device="cuda:0", timeout_s=SHARDED_TIMEOUT_S)
+    res = {"rank": rank, "world": mesh.size, "backend": mesh.backend,
+           "device": str(mesh.device), "init_seconds": time.perf_counter() - t}
+    cfg = Config(index_dir=spec["dir"], embed_dim=DIM, index_storage="device")
+    t = time.perf_counter()
+    engine = SearchEngine.from_artifacts(cfg, index_dir=spec["dir"], embedder="hash",
+                                         hydrate=False, mesh=mesh, warmup=False)
+    idx = engine.index
+    res.update(load_seconds=time.perf_counter() - t, lists=int(mesh.owned(idx.n_lists).sum()),
+               segments=int(idx._codes.shape[0]), resident_bytes=idx.resident_bytes,
+               resident_gib=idx.resident_bytes / 2**30,
+               allocated_gib=torch.cuda.memory_allocated() / 2**30)
+    reset_counts()
+    if rank == 0:
+        engine.warmup()
+        res["split"] = rank0_split(engine)
+    run_server(cfg, engine=engine, port=spec["http"], on_bound=stop_on_signals)
+    torch.cuda.synchronize()
+    res["launches"] = {k: v for k, v in counts().items() if v}
+    del engine, idx
+    release()
+    if spec["flat"]:
+        g = torch.Generator(device="cuda").manual_seed(spec["seed"] + 2)
+        x = unit_rows(FLAT_N, g)                          # flat_phase's corpus and queries
+        q = torch.randn((FLAT_Q, DIM), device="cuda", generator=g).to(torch.bfloat16)
+        q_np = q.float().cpu().numpy()
+        flat = FlatIndex(mesh=mesh)
+        flat.add(x)
+        reset_counts()
+        fv, fp = flat.search(q_np, FLAT_K)
+        torch.cuda.synchronize()
+        fres = {"rows": [flat._lo, flat._lo + flat._rows],
+                "launches": {k: v for k, v in counts().items() if v}}
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            flat.search(q_np, FLAT_K)
+            times.append(time.perf_counter() - t)
+        fres["batch_ms_median"] = statistics.median(times) * 1e3
+        if rank == 0:
+            kept = np.load(spec["flat_kept"])
+            err, bad, ties = compare_topk(
+                q, x, FLAT_K, (torch.from_numpy(fv).cuda(), torch.from_numpy(fp).cuda()),
+                (torch.from_numpy(kept["v"]).cuda(), torch.from_numpy(kept["p"]).cuda()),
+                1e-4)
+            fres.update(max_abs_err=err, index_mismatches=bad, near_ties=ties,
+                        positions_equal=bool(np.array_equal(fp, kept["p"])),
+                        scores_bit_equal=bool(np.array_equal(fv, kept["v"])))
+        res["flat"] = fres
+        del x, flat
+        release()
+    Path(spec["out"]).write_text(json.dumps(res))
+    shutdown_distributed(mesh)
+    return 0
+
+
+def rank0_split(engine, reps: int = 5) -> dict:
+    """Rank 0, before it serves HTTP (host clock, medians of ``reps``):
+    the hash encode of the 256 serve texts, rank 0's own shard search
+    alone (``_search_shard``: probe, slots, scan, resolve; no
+    collective), the engine's collective batch-256 search with id strings
+    (header and query broadcasts, every rank's search, the all-gather
+    merge), and its collective single-query search."""
+    def median_ms(fn):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        return statistics.median(times) * 1e3
+
+    t = time.perf_counter()
+    q = engine.encode_queries(SERVE_TEXTS)
+    return {"encode_ms": (time.perf_counter() - t) * 1e3,
+            "shard_search_ms": median_ms(
+                lambda: engine.index._search_shard(q, 10, engine.nprobe)),
+            "engine_batch256_ms": median_ms(lambda: engine.search_batch_encoded(q, 10)),
+            "engine_single_ms": median_ms(lambda: engine.search_batch_encoded(q[:1], 10))}
+
+
+def sharded_traffic(http: int, reps: int = 5) -> dict:
+    """Through rank 0's HTTP port: the 256 serve texts in one POST (a
+    warm one, then ``reps`` timed), then SHARDED_SINGLES GET /search, one
+    at a time (host clock)."""
+    url = f"http://127.0.0.1:{http}"
+    req = lambda: urllib.request.Request(  # noqa: E731
+        f"{url}/search", data=json.dumps({"queries": SERVE_TEXTS, "k": 10}).encode(),
+        headers={"Content-Type": "application/json"})
+    batch_s = []
+    for _ in range(reps + 1):
+        t = time.perf_counter()
+        with urllib.request.urlopen(req(), timeout=120) as r:
+            batch = json.loads(r.read())["results"]
+        batch_s.append(time.perf_counter() - t)
+    singles, single_s = [], []
+    for text in SERVE_TEXTS[:SHARDED_SINGLES]:
+        t = time.perf_counter()
+        with urllib.request.urlopen(f"{url}/search?q={urllib.parse.quote(text)}&k=10",
+                                    timeout=60) as r:
+            singles.append(json.loads(r.read())["results"])
+        single_s.append(time.perf_counter() - t)
+    return {"batch": batch, "singles": singles,
+            "qps_batch256": 256 / statistics.median(batch_s[1:]),
+            "batch256_ms_median": statistics.median(batch_s[1:]) * 1e3,
+            "batch256_ms_all": [x * 1e3 for x in batch_s[1:]],
+            "single_query_p50_ms": statistics.median(single_s) * 1e3}
+
+
+def hold_http_against_kept(rows: list, kv: np.ndarray, kp: np.ndarray) -> dict:
+    """Served rows against one process's device-storage results on the
+    same queries: scores bit for bit (JSON carries an f32 exactly), ids
+    those of the kept positions except among equal scores (a group of
+    equal scores holds the same ids, in any order; at the k-th place any
+    of them)."""
+    reordered = 0
+    for i, row in enumerate(rows):
+        live = kp[i] >= 0
+        want_ids = np.asarray([id_of(p) for p in kp[i][live]])
+        got_v = np.asarray([r["score"] for r in row], np.float32)
+        if got_v.shape != want_ids.shape or not np.array_equal(got_v, kv[i][live]):
+            raise AssertionError(f"served scores of query {i} differ from one process's")
+        got_ids = np.asarray([r["id"] for r in row])
+        if (got_ids != want_ids).any():
+            for u in np.unique(got_v[got_ids != want_ids]):
+                same = got_v == u
+                if u != got_v[-1] and (same.sum() < 2
+                                       or set(got_ids[same]) != set(want_ids[same])):
+                    raise AssertionError(f"served ids of query {i} differ from one "
+                                         f"process's beyond equal scores")
+            reordered += 1
+    return {"queries": len(rows), "scores_bit_equal": True,
+            "queries_reordered_among_equal_scores": reordered}
+
+
+def launch_ranks(d: Path, world: int, backend: str, seed: int, *, flat: bool) -> tuple:
+    """``world`` rank processes (``chip_smoke.py --sharded-rank``) on the
+    card, under one wall-clock limit; rank 0's traffic once it serves;
+    SIGTERM to rank 0, then every rank must exit 0. A rank that exits
+    early, or a launch past its limit, fails with each rank's last
+    output. -> (each rank's numbers, the traffic's)."""
+    port, http = free_port(), free_port()
+    tag = f"{backend}_w{world}"
+    procs, logs, outs = [], [], []
+    deadline = time.monotonic() + SHARDED_LAUNCH_S
+
+    def tails(why: str):
+        text = "\n".join(f"--- rank {r} (exit {p.poll()}) ---\n{logs[r].read_text()[-2500:]}"
+                         for r, p in enumerate(procs))
+        return AssertionError(f"sharded {tag}: {why}\n{text}")
+
+    try:
+        for r in range(world):
+            outs.append(d / f"{tag}_rank{r}.json")
+            logs.append(d / f"{tag}_rank{r}.log")
+            spec = d / f"{tag}_rank{r}.spec.json"
+            spec.write_text(json.dumps({
+                "rank": r, "world": world, "backend": backend, "port": port, "http": http,
+                "dir": str(d), "seed": seed, "flat": flat, "out": str(outs[r]),
+                "flat_kept": str(d / "flat_kept.npz")}))
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--sharded-rank", str(spec)],
+                    stdout=log, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent))
+        while True:
+            if any(p.poll() is not None for p in procs):
+                raise tails("a rank exited before rank 0 served")
+            if time.monotonic() > deadline:
+                raise tails("rank 0 never served")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{http}/healthz", timeout=5):
+                    break
+            except OSError:
+                time.sleep(0.5)
+        traffic = sharded_traffic(http)
+        procs[0].send_signal(__import__("signal").SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise tails("a rank outlived the launch's limit") from None
+        if any(p.returncode for p in procs):
+            raise tails("a rank failed")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [json.loads(o.read_text()) for o in outs], traffic
+
+
+def sharded_phase(seed: int, by_path: dict, art: Path, d: Path, n_rows: int, kept: dict,
+                  kept_singles: tuple, flat_kept: tuple, codes_bytes: int, smi: str) -> dict:
+    """The phase-``index`` artifact served corpus-sharded, as users serve
+    it (``ids.parquet`` with its sidecar, ``params.json`` at nprobe 16):
+    W = 4 gloo ranks sharing the card (then FlatIndex sharded over them)
+    and W = 1 under NCCL, each held against one process's device-storage
+    results on the same queries (phase serve)."""
+    from abstracts_search_tpu_torch.index.tune import write_params
+
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    (d / "index").symlink_to(art.resolve())
+    write_params(d / "params.json", {"nprobe": 16, "k": 10})
+    res = {"label": f"W ranks sharing one {torch.cuda.get_device_name(0)}: no scaling "
+                    f"number", "nvidia_smi": smi,
+           "ids_parquet": write_ids(d / "ids.parquet", n_rows)}
+    np.savez(d / "flat_kept.npz", v=flat_kept[0], p=flat_kept[1])
+    kv, kp = kept[("text", 16)]
+    sv, sp = kept_singles
+    for world, backend, flat in ((SHARDED_W, "gloo", True), (1, "nccl", False)):
+        t = time.perf_counter()
+        ranks, traffic = launch_ranks(d, world, backend, seed, flat=flat)
+        tag = f"{backend}_w{world}"
+        out = {"seconds": time.perf_counter() - t,
+               "batch256": hold_http_against_kept(traffic["batch"], kv, kp),
+               "singles": hold_http_against_kept(traffic["singles"], sv, sp),
+               **{k: v for k, v in traffic.items() if k not in ("batch", "singles")},
+               "ranks": ranks}
+        for r in ranks:
+            if not (r["launches"].get("topk") and r["launches"].get("adc_topk")):
+                raise AssertionError(f"{tag} rank {r['rank']} launched {r['launches']}")
+        if sum(r["resident_bytes"] for r in ranks) != codes_bytes:
+            raise AssertionError(f"{tag}: the ranks hold {[r['resident_bytes'] for r in ranks]}"
+                                 f" bytes of codes, the artifact {codes_bytes}")
+        path = "sharded" if backend == "gloo" else "sharded_nccl"
+        by_path[path] = {k: sum(r["launches"].get(k, 0) for r in ranks)
+                         for k in ("topk", "adc_topk")}
+        if flat:
+            fl = [r["flat"] for r in ranks]
+            if fl[0]["index_mismatches"] or fl[0]["max_abs_err"] > 1e-4:
+                raise AssertionError(f"sharded FlatIndex disagrees with one process's: {fl[0]}")
+            if not all(f["launches"].get("topk") for f in fl):
+                raise AssertionError(f"a flat rank never launched kernel 1: {fl}")
+            by_path["sharded_flat"] = {"topk": sum(f["launches"]["topk"] for f in fl)}
+        res[tag] = out
+    return res
+
+
 # -- the stella encoder ---------------------------------------------------------------
 
 # card against CPU at full width on the first layers, f32: the same
@@ -2160,14 +2565,18 @@ def main() -> int:
     ap.add_argument("--n-rows", type=int, default=206_962_688)
     ap.add_argument("--phases",
                     default="device,build,kernels,flat,index_build,ivf_flat,ingest,index,"
-                            "serve,stages_batch256,encoder,hybrid,host,legacy",
+                            "serve,stages_batch256,encoder,hybrid,host,sharded,legacy",
                     help="comma-separated subset, for development runs")
+    # one rank of phase sharded (started by the phase itself)
+    ap.add_argument("--sharded-rank", metavar="SPEC_JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.sharded_rank:
+        return sharded_rank(json.loads(Path(args.sharded_rank).read_text()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -2214,7 +2623,7 @@ def main() -> int:
 
     if "flat" in phases:
         t = time.perf_counter()
-        res, flat_rows = flat_phase(args.seed, by_path)
+        res, flat_rows, flat_kept = flat_phase(args.seed, by_path)
         rows["topk_fast"] = flat_rows["topk_fast"]
         emit({"phase": "flat", "seconds": time.perf_counter() - t, **res})
 
@@ -2273,6 +2682,11 @@ def main() -> int:
                     emit({"phase": "stages_batch256", **res,
                           "seconds": time.perf_counter() - t})
                 kept = keep_results(idx, ctx["q_sets"])
+                q_single = ctx["q_sets"]["text"][:SHARDED_SINGLES]
+                kept_singles = tuple(np.concatenate(a) for a in zip(
+                    *(idx.search(q_single[i:i + 1], 10, nprobe=16)
+                      for i in range(len(q_single)))))
+                codes_bytes = idx.resident_bytes
                 del ctx
                 if "encoder" in phases:
                     t = time.perf_counter()
@@ -2307,6 +2721,16 @@ def main() -> int:
                   "seconds": time.perf_counter() - t})
             del idx, ctx
             release()
+
+        if kept is not None and "flat" in phases and "sharded" in phases:
+            t = time.perf_counter()
+            sharded_dir = art.parent / "smoke_sharded"
+            try:
+                res = sharded_phase(args.seed, by_path, art, sharded_dir, args.n_rows, kept,
+                                    kept_singles, flat_kept, codes_bytes, smi)
+            finally:
+                shutil.rmtree(sharded_dir, ignore_errors=True)
+            emit({"phase": "sharded", **res, "seconds": time.perf_counter() - t})
 
         if "legacy" in phases:
             t = time.perf_counter()
