@@ -22,14 +22,18 @@ same artifact layout::
 Run as ``python -m abstracts_search_tpu_torch.cli``. Everything runs on
 the CUDA card unless ``--device cpu`` asks for the plain-PyTorch route.
 
-``serve`` and ``search`` also run corpus-sharded over a
-``torch.distributed`` mesh, one process per rank: ``--coordinator
-HOST:PORT --num-processes W --process-id R`` on each (or torchrun's
-environment), ``--dist-backend nccl`` (the default on the card: one rank
-per card) or ``gloo`` (ranks that share a card; the default with
-``--device cpu``). Rank ``R`` serves the lists ``l % W == R`` on
-``--device`` (default ``cuda:<local rank>``); rank 0 holds the HTTP
-server. Every other command runs in one process and refuses the mesh.
+``serve``, ``search``, the build (``index train``, ``index fill``,
+``index tune``), ``dump``, ``sync`` and ``all`` also run over a
+``torch.distributed`` mesh, one process per rank, every rank given the
+same command: ``--coordinator HOST:PORT --num-processes W --process-id
+R`` on each (or torchrun's environment), ``--dist-backend nccl`` (the
+default on the card: one rank per card) or ``gloo`` (ranks that share a
+card; the default with ``--device cpu``). Rank ``R`` runs on
+``--device`` (default ``cuda:<local rank>``): it serves the lists ``l %
+W == R`` (rank 0 holds the HTTP server), trains on its block of the
+sample, encodes its share of the fill, and ingests its own partitions;
+rank 0 writes the artifacts (``driver.py``). Every other command runs
+in one process and refuses the mesh.
 
 Env (reference-compatible): SIDECARSEARCH_MODEL,
 SIDECARSEARCH_TRUST_REMOTE_CODE, MODEL_NAME, PROMPT_NAME,
@@ -50,14 +54,16 @@ from .config import load_config
 
 logger = logging.getLogger("astpu")
 
-# the commands that run over a mesh
-MESH_COMMANDS = ("serve", "search")
+# the commands that run over a mesh, and the index subcommands among them
+MESH_COMMANDS = ("serve", "search", "sync", "all", "dump", "index")
+MESH_INDEX_COMMANDS = ("train", "fill", "tune")
 
 
 def _driver(args, cfg):
     from .driver import Driver
 
-    return Driver(cfg, embedder=getattr(args, "embedder", "auto"), device=args.device)
+    return Driver(cfg, embedder=getattr(args, "embedder", "auto"), device=args.device,
+                  mesh=args.mesh)
 
 
 # -- sidecar-style subcommands -------------------------------------------------
@@ -110,7 +116,19 @@ def cmd_build(args, cfg):
 
 
 def cmd_dump(args, cfg):
-    """Bidirectional sqlite <-> parquet; direction by argument order."""
+    """Bidirectional sqlite <-> parquet; direction by argument order. Over
+    a mesh rank 0 alone writes; the others wait for it."""
+    from .parallel.mesh import process_barrier
+
+    try:
+        if args.mesh is None or args.mesh.rank == 0:
+            _dump(args)
+    finally:
+        if args.mesh is not None:
+            process_barrier(args.mesh)
+
+
+def _dump(args) -> None:
     from .storage.shards import dump_store_to_shards, load_shards_to_store
     from .storage.sqlite_store import EmbeddingStore, init_store
 
@@ -229,8 +247,8 @@ def cmd_sync(args, cfg):
     # incremental sync skips the full re-dump (at 207M rows an ~850 GB
     # parquet rewrite): the delta fill streams from the store. Without a
     # prior full dump + fill the fill takes the full path, which needs
-    # fresh shards: dump then.
-    if args.incremental and d.incremental_ready():
+    # fresh shards: dump then, as over a mesh, whose fill is a full one.
+    if args.incremental and d.incremental_ready() and d.mesh.size == 1:
         d.target_fill(incremental=True)
     else:
         d.target_dump()
@@ -377,8 +395,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="device of the indexes, the encoder and virtual corpora "
                         "(default: the CUDA card; 'cpu' for the plain-PyTorch route)")
     p.add_argument("--coordinator", metavar="HOST:PORT",
-                   help="rank 0's rendezvous address: serve/search corpus-sharded over a "
-                        "torch.distributed mesh, one process per rank")
+                   help="rank 0's rendezvous address: run serve, search, index "
+                        "train|fill|tune, dump, sync or all over a torch.distributed "
+                        "mesh, one process per rank")
     p.add_argument("--num-processes", type=int, default=None,
                    help="ranks in the mesh (with --coordinator)")
     p.add_argument("--process-id", type=int, default=None,
@@ -500,8 +519,8 @@ def make_parser() -> argparse.ArgumentParser:
 def _join_mesh(args):
     """This process's rank of the mesh that ``--coordinator`` (or
     torchrun's environment) names, or None for a one-process run. Only
-    ``MESH_COMMANDS`` run over a mesh; the rest are refused before any
-    rank joins."""
+    ``MESH_COMMANDS`` (of ``index``, ``MESH_INDEX_COMMANDS``) run over a
+    mesh; the rest are refused before any rank joins."""
     from .parallel.mesh import init_distributed
 
     torchrun = all(v in os.environ for v in ("MASTER_ADDR", "WORLD_SIZE", "RANK"))
@@ -510,10 +529,15 @@ def _join_mesh(args):
             raise ValueError("--num-processes/--process-id/--dist-backend need "
                              "--coordinator HOST:PORT (or torchrun's environment)")
         return None
-    if args.cmd not in MESH_COMMANDS:
-        raise ValueError(f"astpu-torch {args.cmd} runs in one process: over a mesh the port "
-                         f"runs {', '.join(MESH_COMMANDS)}; its multi-GPU build (the sharded "
-                         f"k-means, PQ, fill and driver) is slice 8 of ROADMAP.md")
+    index_cmd = getattr(args, "index_cmd", None)
+    if args.cmd not in MESH_COMMANDS or (args.cmd == "index"
+                                         and index_cmd not in MESH_INDEX_COMMANDS):
+        name = args.cmd if args.cmd != "index" else f"index {index_cmd}"
+        over = [c for c in MESH_COMMANDS if c != "index"] + [
+            f"index {c}" for c in MESH_INDEX_COMMANDS]
+        raise ValueError(f"astpu-torch {name} runs in one process: over a mesh the port runs "
+                         f"{', '.join(over)}; the other commands' multi-GPU paths wait in "
+                         f"ROADMAP.md's queue")
     mesh = init_distributed(args.coordinator, args.num_processes, args.process_id,
                             args.dist_backend, device=args.device)
     args.device = str(mesh.device)

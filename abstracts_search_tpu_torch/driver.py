@@ -21,11 +21,24 @@ and rebuild semantics:
 - ``recover`` : parquet -> sqlite, and ``events/`` restored.
 - ``clean``   : remove the artifacts.
 
-It runs single-controller on one device (the card unless the caller
-asks for the CPU): the process index is 0, and the JAX package's
-multi-host barriers and its per-host store split of ``build`` wait for
-the port's multi-GPU slice. Dump still folds per-host stores
-(``data.sqlite.p<pid>``) that a multi-host run left behind.
+It runs on one device (the card unless the caller asks for the CPU),
+or as one rank of a ``torch.distributed`` mesh (``mesh=``: every rank
+runs the same targets, as every JAX process does). Over a mesh:
+
+- ``build``: rank 0 writes the manifest; each rank ingests the
+  partitions ``i % W == rank`` (every rank embeds on its own card) into
+  its own store ``data.sqlite.p<rank>``;
+- ``dump``: rank 0 folds the per-rank stores into the main store and
+  dumps; the others wait;
+- ``train``, ``fill``, ``tune``: every rank runs them over the mesh
+  (``index/``); rank 0 alone writes the artifacts, ``ids.parquet``,
+  the stamps and the reports, which hold every rank's stages under
+  ``ranks``; the trained arrays are checked equal on every rank; the
+  fill deals the reader's row groups round-robin before any is read,
+  and rank 0 reads the id column of every row group for ``ids.parquet``;
+- an incremental fill runs a full fill (the delta streams from one
+  store);
+- each target ends at a barrier, so every rank sees its files.
 
 Two deliberate differences from the JAX copy: ``_IdsWriter.commit``
 leaves a tombstone meta before its first rename, so a half-committed
@@ -47,18 +60,19 @@ from __future__ import annotations
 import json
 import logging
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 from .config import Config
-from .device import resolve_device
 from .index import tune
 from .index.ivfpq import IVFPQIndex, _json_safe
 from .ingest.manifest import default_fetcher, parse_manifest, update_manifest_file
 from .ingest.sync import SyncState, sync
 from .models.registry import get_embedder
 from .ops import launch_counts
+from .parallel.mesh import Mesh, deal, gather_objects, index_mesh, process_barrier
 from .storage.shards import DUMP_META, dump_store_to_shards, load_shards_to_store
 from .storage.sqlite_store import EmbeddingStore, init_store
 from .storage.virtual import SPEC_NAME, generator_tag, open_data_source
@@ -85,7 +99,8 @@ class Driver:
     ``embedder``: a registry name (``get_embedder``, built at first use
     on the driver's device) or an embedder object (``texts -> [n, dim]
     f32``). ``device``: where indexes and virtual corpora live; None is
-    the CUDA card."""
+    the CUDA card. ``mesh``: this process's rank of the mesh every rank
+    runs the targets over (module docstring); its device then."""
 
     # tune defaults shared by target_tune and the oracle precompute
     TUNE_QUERIES = 256
@@ -94,11 +109,13 @@ class Driver:
     SAMPLE_INRAM_BYTES = 1 << 30
 
     def __init__(self, cfg: Config, *, root: str | Path = ".", embedder="auto",
-                 fetcher=default_fetcher, device=None):
+                 fetcher=default_fetcher, device=None, mesh: Mesh | None = None):
         self.cfg = cfg
         self.root = Path(root)
         self.fetcher = fetcher
-        self.device = resolve_device(device)
+        self.mesh = index_mesh(mesh, device)
+        self.device = self.mesh.device
+        self.rank0 = self.mesh.rank == 0
         self._embedder_name = embedder if isinstance(embedder, str) else None
         self._embedder = None if isinstance(embedder, str) else embedder
         self._filled_index = None
@@ -126,8 +143,24 @@ class Driver:
     @property
     def embedder(self):
         if self._embedder is None:
+            # no mesh: over one, every rank of a build embeds its own
+            # partitions (only the serve path keeps the encoder on rank 0)
             self._embedder = get_embedder(self._embedder_name, self.cfg, device=self.device)
         return self._embedder
+
+    def _barrier(self) -> None:
+        process_barrier(self.mesh)
+
+    def _rank_report(self, report: dict, path: Path | None = None, **mine) -> dict:
+        """``report`` with every rank's ``mine`` under ``ranks`` over a
+        mesh (gathered: a collective), written by rank 0 to ``path``."""
+        if self.mesh.collective:
+            report = {**report, "ranks": gather_objects(self.mesh,
+                                                        {"rank": self.mesh.rank, **mine})}
+        if path is not None and self.rank0:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(_json_safe(report), indent=2))
+        return report
 
     def _store(self, create=False) -> EmbeddingStore:
         if create and not self.store_path.exists():
@@ -158,28 +191,44 @@ class Driver:
     def target_build(self) -> dict:
         """Manifest fetch + incremental partition ingest into the store.
         ``build_stats`` then holds each ingested partition's rows,
-        ``embed_s`` and ``stall_s``."""
+        ``embed_s`` and ``stall_s``. Over a mesh each rank ingests its
+        own partitions into its own store."""
         urls = parse_manifest(self.fetcher(self.cfg.manifest_url))
-        changed = update_manifest_file(self.manifest_path, urls)
-        logger.info("manifest: %d part urls (%s)", len(urls),
-                    "updated" if changed else "unchanged")
+        if self.rank0:
+            changed = update_manifest_file(self.manifest_path, urls)
+            logger.info("manifest: %d part urls (%s)", len(urls),
+                        "updated" if changed else "unchanged")
+        self._barrier()
         state = SyncState(self.events_dir)
-        store = self._store(create=True)
+        owner = None
+        if self.mesh.size == 1:
+            store = self._store(create=True)
+        else:
+            p = self.store_path.with_name(f"{self.store_path.name}.p{self.mesh.rank}")
+            store = init_store(p) if not p.exists() else EmbeddingStore(p)
+            owner = (self.mesh.rank, self.mesh.size)
         # one revision per sync run: rows this run upserts are "since the
-        # last fill" for the incremental-fill watermark
+        # last fill" for the incremental-fill watermark (a part store's
+        # revision bounds what the dump's merge moves)
         store.bump_rev()
         self.build_stats = {}
         try:
-            return sync(urls, state, self.embedder, store, batch_size=self.cfg.embed_batch,
-                        buffer_bytes=self.cfg.ingest_buffer_bytes, stats=self.build_stats)
+            out = sync(urls, state, self.embedder, store, batch_size=self.cfg.embed_batch,
+                       buffer_bytes=self.cfg.ingest_buffer_bytes, owner=owner,
+                       stats=self.build_stats)
         finally:
             store.close()
+        self._barrier()
+        return out
+
+    def _host_stores(self) -> list[Path]:
+        return sorted(self.store_path.parent.glob(self.store_path.name + ".p*"))
 
     def _merge_host_stores(self) -> int:
         """Fold per-host ingest stores (``data.sqlite.p<pid>``) into the
         main store (sqlite ATTACH + INSERT OR REPLACE, id-keyed, so a
         re-merge is idempotent)."""
-        parts = sorted(self.store_path.parent.glob(self.store_path.name + ".p*"))
+        parts = self._host_stores()
         if not parts:
             return 0
         store = self._store(create=True)
@@ -213,7 +262,15 @@ class Driver:
         return merged
 
     def target_dump(self, *, force: bool = False) -> int:
-        """Export sqlite -> parquet when the event set changed."""
+        """Export sqlite -> parquet when the event set changed. Over a mesh
+        rank 0 alone merges the per-rank stores and dumps; -> its rows (0
+        on the other ranks)."""
+        try:
+            return self._dump(force=force) if self.rank0 else 0
+        finally:
+            self._barrier()
+
+    def _dump(self, *, force: bool) -> int:
         self._merge_host_stores()
         current = set(SyncState(self.events_dir).completed())
         copied = (set(p.name for p in self.published_events.iterdir())
@@ -249,11 +306,14 @@ class Driver:
         if n * reader.dim * 4 <= self.SAMPLE_INRAM_BYTES:
             return reader.sample(n)
         cache = self.data_dir / ".astpu_cache"
-        cache.mkdir(parents=True, exist_ok=True)
         path = cache / f"train_sample_{n}x{reader.dim}.f32"
-        mm = np.memmap(path, dtype=np.float32, mode="w+", shape=(n, reader.dim))
-        reader.sample(n, out=mm)
-        mm.flush()
+        if self.rank0:      # one writer; over a mesh every rank reads it
+            cache.mkdir(parents=True, exist_ok=True)
+            mm = np.memmap(path, dtype=np.float32, mode="w+", shape=(n, reader.dim))
+            reader.sample(n, out=mm)
+            mm.flush()
+            del mm
+        self._barrier()
         return np.memmap(path, dtype=np.float32, mode="r", shape=(n, reader.dim))
 
     def target_train(self, *, force: bool = False, kmeans_iters: int = 10) -> bool:
@@ -266,12 +326,21 @@ class Driver:
         index = IVFPQIndex(n_lists, sample.shape[1], pq_m=self.cfg.pq_m,
                            pq_nbits=self.cfg.pq_nbits, use_opq=self.cfg.opq,
                            spherical=self.cfg.normalize, storage=self.cfg.index_storage,
-                           seg_size=self.cfg.index_seg_size, device=self.device)
+                           seg_size=self.cfg.index_seg_size, mesh=self.mesh)
         stats = index.train(sample, kmeans_iters=kmeans_iters,
                             workdir=self.data_dir / ".astpu_cache")
-        index.save(self.empty_dir, include_lists=False)
-        self.untuned_path.parent.mkdir(parents=True, exist_ok=True)
-        self.untuned_path.write_text(json.dumps(_json_safe(stats), indent=2))
+        # every rank trained the same arrays, bit for bit: checked before
+        # rank 0 writes the artifact and untuned.json (every rank's stages
+        # and hash under "ranks")
+        digest = _trained_sha256(index)
+        stats = self._rank_report(stats, stages=stats["stages"], sha256=digest)
+        if len({r["sha256"] for r in stats.get("ranks", [])} | {digest}) != 1:
+            raise RuntimeError(f"the ranks trained different arrays: {stats['ranks']}")
+        if self.rank0:
+            index.save(self.empty_dir, include_lists=False)
+            self.untuned_path.parent.mkdir(parents=True, exist_ok=True)
+            self.untuned_path.write_text(json.dumps(_json_safe(stats), indent=2))
+        self._barrier()
         logger.info("train: %d lists trained on %d rows", n_lists, len(sample))
         return True
 
@@ -279,7 +348,7 @@ class Driver:
         if filled and self._filled_index is not None:
             return self._filled_index
         d = self.filled_dir if filled else self.empty_dir
-        idx = IVFPQIndex.load(d, device=self.device, storage=self.cfg.index_storage,
+        idx = IVFPQIndex.load(d, mesh=self.mesh, storage=self.cfg.index_storage,
                               hot_budget_bytes=self.cfg.index_hot_bytes)
         if filled:
             # kept: a second load would install a second copy of the lists
@@ -374,7 +443,11 @@ class Driver:
         # the incremental path streams from the STORE, so it is consulted
         # before the dump-fingerprint no-op: `astpu build && astpu index
         # fill --incremental` has new store rows but an unchanged dump
-        if incremental and not force and self.incremental_ready():
+        if incremental and not force and self.incremental_ready() and self.mesh.size > 1:
+            logger.warning("incremental fill runs in one process (the delta streams from "
+                           "one store); running a full fill over the %d ranks",
+                           self.mesh.size)
+        elif incremental and not force and self.incremental_ready():
             changed = self._fill_delta(fp, stamp)
             if changed and self.cfg.auto_compact and self.compaction_due():
                 s = self.delta_stats()
@@ -394,33 +467,54 @@ class Driver:
         index = self._load_index(filled=False)
         reader = self._reader()
         self.filled_dir.mkdir(parents=True, exist_ok=True)
-        # ids.parquet streams row group by row group beside the fill
-        writer = _IdsWriter(self.ids_path.with_name(self.ids_path.name + ".tmp"))
-        n_rows = 0
+        # the row groups are dealt before any is read: each rank reads
+        # the embeddings of its own (deal); ids.parquet has one writer,
+        # rank 0, which reads the id column of every row group beside
+        # the fill
+        starts = np.cumsum([0, *reader.row_group_rows()])
+        mine = deal(len(starts) - 1, self.mesh)
+        n_rows = int(starts[-1])
+        writer = (_IdsWriter(self.ids_path.with_name(self.ids_path.name + ".tmp"))
+                  if self.rank0 else None)
 
         def chunks():
-            nonlocal n_rows
-            pos = 0
-            for ids, embs in reader.iter_row_groups():
+            for g, (_, embs) in zip(mine, reader.iter_row_groups(with_ids=False,
+                                                                  groups=mine)):
+                yield embs, np.arange(starts[g], starts[g + 1], dtype=np.int64)
+
+        def write_ids():
+            for ids in reader.iter_ids():
                 writer.write(ids)
-                positions = np.arange(pos, pos + len(embs), dtype=np.int64)
-                pos += len(embs)
-                n_rows = pos
-                yield embs, positions
 
         # codes spill to disk and the external pack writes the memmap
         # artifact in place
         timer = StageTimer(counters=launch_counts)
-        with timer.stage("fill_stream") as rec:
-            try:
+        try:
+            with timer.stage("fill_stream") as rec, ThreadPoolExecutor(1) as pool:
+                ids_job = pool.submit(write_ids) if writer is not None else None
                 index.fill_stream(chunks(), lists_dir=self.filled_dir / "lists")
-            except BaseException:
+                if ids_job is not None:
+                    ids_job.result()
+                rec["fill_stats"] = index.fill_stats
+        except BaseException:
+            # the pool's exit waited for the ids thread
+            if writer is not None:
                 writer.abort()
-                raise
-            rec["fill_stats"] = index.fill_stats
-        with timer.stage("save"):
-            writer.commit(self.ids_path)
-            index.save(self.filled_dir)
+            raise
+        if self.rank0:
+            with timer.stage("save"):
+                writer.commit(self.ids_path)
+                index.save(self.filled_dir)
+            self._stamp_full_fill(fp)
+        self._rank_report(timer.report(), self.fill_report_path, stages=timer.stages)
+        self._barrier()
+        # the lists are installed: a same-process tune or serve reuses them
+        self._filled_index = index
+        logger.info("fill: %d vectors indexed", n_rows)
+        return True
+
+    def _stamp_full_fill(self, fp: dict) -> None:
+        """The fill stamp of a full fill; drops the delta sub-indexes."""
         # a full fill covers exactly what the DUMP captured: its store
         # revision is the incremental watermark (stamping the live store
         # counter would orphan rows upserted after the dump). A data dir
@@ -433,11 +527,6 @@ class Driver:
         if self.delta_root.is_dir():
             shutil.rmtree(self.delta_root)
         self.fill_stamp.write_text(json.dumps({"fingerprint": fp, "watermark": watermark}))
-        timer.write(self.fill_report_path)
-        # the lists are installed: a same-process tune or serve reuses them
-        self._filled_index = index
-        logger.info("fill: %d vectors indexed", n_rows)
-        return True
 
     def _fill_delta(self, fp: dict, stamp: dict) -> bool:
         """Incremental fill: index only the rows upserted since the last
@@ -509,7 +598,7 @@ class Driver:
         k = self.TUNE_K if k is None else k
         kw = self._tune_oracle_kw(n_queries, k)
         tune.ensure_oracle_cache(kw["oracle_cache"], kw["oracle_key"], self._reader(), k=k,
-                                 device=self.device, spherical=bool(self.cfg.normalize))
+                                 mesh=self.mesh, spherical=bool(self.cfg.normalize))
 
     def target_tune(self, *, force: bool = False, n_queries: int | None = None,
                     k: int | None = None, target_recall: float = 0.95) -> bool:
@@ -548,8 +637,10 @@ class Driver:
         with timer.stage("sweep"):
             params = tune.tune_index(index, source, n_queries=min(n_queries, n_rows), k=k,
                                      target_recall=target_recall, **cache_kw)
-        tune.write_params(self.params_path, params)
-        timer.write(self.tune_report_path)
+        if self.rank0:
+            tune.write_params(self.params_path, params)
+        self._rank_report(timer.report(), self.tune_report_path, stages=timer.stages)
+        self._barrier()
         logger.info("tune: nprobe=%d recall=%.3f", params["nprobe"],
                     params["achieved_recall"])
         return True
@@ -567,8 +658,10 @@ class Driver:
                     with timer.stage("build"), profile_scope("build"):
                         self.target_build()
                 except Exception as e:
+                    if self.mesh.size > 1:
+                        raise       # the other ranks wait in its barriers
                     logger.warning("build skipped: %s", e)
-            if self.store_path.exists():
+            if self.store_path.exists() or self._host_stores():
                 with timer.stage("dump"):
                     self.target_dump()
         if self.data_dir.is_dir() and not self.params_path.exists():
@@ -580,8 +673,8 @@ class Driver:
             self.target_fill(kmeans_iters=kmeans_iters)
         with timer.stage("tune"), profile_scope("tune"):
             self.target_tune()
-        self.index_dir.mkdir(parents=True, exist_ok=True)
-        timer.write(self.index_dir / "build_report.json")
+        self._rank_report(timer.report(), self.index_dir / "build_report.json",
+                          stages=timer.stages)
 
     def target_recover(self) -> int:
         """Rebuild sqlite + the sync position from the published dataset."""
@@ -605,6 +698,16 @@ class Driver:
             if f.exists():
                 f.unlink()
         logger.info("clean: done")
+
+
+def _trained_sha256(index: IVFPQIndex) -> str:
+    """sha256 of the trained arrays: centroids, codebooks, rotation."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in (index.centroids, index.pq_centroids, index.rotation):
+        h.update(np.ascontiguousarray(a, np.float32).tobytes())
+    return h.hexdigest()
 
 
 def _parquet_rows(path: Path) -> int:

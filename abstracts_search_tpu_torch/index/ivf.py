@@ -27,6 +27,10 @@ Over a mesh (``parallel/mesh.py``) rank ``r`` of ``W`` installs only the
 lists ``l % W == r`` (``rank_shard``: its segments gathered from the
 memmap), probes like every rank, scans its own probed tiles, and one
 all-gather merges the ranks' top-k lists (``merge_topk_all_gather``).
+Every rank trains and fills with the same rows: k-means sums its block
+of rows and reduces over the mesh (``kmeans.py``), and the fill assigns
+each rank's block, gathers every assignment and packs the same lists on
+every rank before each installs its own.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ class IVFFlatIndex:
         self.impl = impl
         self.seed = seed
         self.kmeans = KMeans(n_lists, spherical=spherical, chunk=chunk, impl=impl, seed=seed,
-                             device=self.device)
+                             mesh=self.mesh)
         self.packed: CSRLists | None = None
         self._data = None
         self.n = 0
@@ -88,13 +92,11 @@ class IVFFlatIndex:
     def train(self, sample: np.ndarray, *, iters: int = 10) -> dict:
         """Train the coarse quantizer; returns its stats (the
         ``untuned.json`` analog)."""
-        self.mesh.refuse_build("train")
         self.kmeans.fit(sample, iters=iters)
         return self.kmeans.stats
 
     def fill(self, vectors: np.ndarray, positions: np.ndarray | None = None) -> None:
         """Assign and pack every vector into the CSR lists."""
-        self.mesh.refuse_build("fill")
         if not self.is_trained:
             raise RuntimeError("train() before fill()")
         if self.packed is not None:

@@ -65,12 +65,29 @@ The build (``train`` -> ``save`` -> ``load`` -> ``fill_stream`` ->
   assignments and positions collect in RAM or spill to disk, then pack
   into transposed CSR lists (``lists.py``) written straight to the
   artifact.
+
+The build over a mesh (every rank calls ``train`` and ``fill_stream``
+with the same arguments):
+
+- train: OPQ, k-means and PQ each sum their rank's block of rows and
+  reduce the sums over the ranks in rank order, so every rank ends with
+  the same rotation, centroids and codebooks, bit for bit;
+- fill: the chunks of the stream are dealt round-robin before they are
+  read, chunk ``i`` to rank ``i % W`` (``deal``; the driver deals the
+  reader's row groups), and each rank encodes its chunks exactly as one
+  process does and spills them to ``<parent>/.astpu_spill/p<rank>/``
+  (with an ``.owner_p<rank>.json`` breadcrumb in the lists dir), as one
+  process spills to ``p0/``. After a barrier rank 0 merges the spills
+  back into stream order and runs the one external pack (a single
+  writer), so the lists are byte for byte one process's; after a second
+  barrier every rank installs its own lists.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import shutil
 import threading
 import time
 from pathlib import Path
@@ -83,7 +100,7 @@ from ..device import assert_exact_f32
 from ..ops import _build, launch_counts
 from ..ops.adc import adc_scan, adc_topk
 from ..ops.topk import streaming_topk
-from ..parallel.mesh import Mesh, index_mesh
+from ..parallel.mesh import Mesh, index_mesh, process_barrier, shard_rows
 from ..parallel.topk_merge import merge_topk_all_gather
 from ..utils.trace import StageTimer
 from .kmeans import KMeans, _normalize_rows, _normalize_rows_t, _round_up
@@ -262,10 +279,9 @@ class IVFPQIndex:
                 "unnormalized rows. Pass -N (the reference TRAINFLAGS "
                 "always do) or use IVFFlatIndex for exact plain-L2 search.")
         self.kmeans = KMeans(n_lists, spherical=True, chunk=chunk, impl=impl, seed=seed,
-                             device=self.device)
-        self.pq = ProductQuantizer(dim, pq_m, pq_nbits, seed=seed, device=self.device)
-        self.opq = (OPQ(dim, pq_m, pq_nbits, seed=seed, device=self.device)
-                    if use_opq else None)
+                             mesh=self.mesh)
+        self.pq = ProductQuantizer(dim, pq_m, pq_nbits, seed=seed, mesh=self.mesh)
+        self.opq = OPQ(dim, pq_m, pq_nbits, seed=seed, mesh=self.mesh) if use_opq else None
         self.centroids: np.ndarray | None = None      # [n_lists, D]
         self.pq_centroids: np.ndarray | None = None   # [M, ksub, dsub]
         self.rotation = np.eye(dim, dtype=np.float32)
@@ -295,9 +311,7 @@ class IVFPQIndex:
 
     def _refuse_mutation(self, op: str) -> None:
         """A legacy non-spherical artifact is serve-only: building new
-        data under its semantics hits the error a new construction gets.
-        Over a mesh of several ranks the index serves only."""
-        self.mesh.refuse_build(op)
+        data under its semantics hits the error a new construction gets."""
         if not self.spherical:
             raise ValueError(
                 f"cannot {op}() a legacy non-spherical IVFPQIndex: this "
@@ -346,6 +360,8 @@ class IVFPQIndex:
     PQ_TRAIN_ROWS = 1 << 18
     # rows per kernel-1 call of the residual assignment and the encode
     ENCODE_ROWS = 1 << 18
+    # rows of a k-means window in the streamed mode (a rank sums whole ones)
+    TRAIN_WINDOW_ROWS = 1 << 18
 
     def train(self, sample, *, kmeans_iters: int = 10, opq_iters: int = 3,
               pq_iters: int = 10, workdir: str | Path | None = None) -> dict:
@@ -386,7 +402,6 @@ class IVFPQIndex:
         return self.train_stats
 
     def _train_big(self, sample, timer, *, kmeans_iters, opq_iters, pq_iters, workdir):
-        import shutil
         import tempfile
 
         n, dim = sample.shape
@@ -409,6 +424,7 @@ class IVFPQIndex:
             self.rotation = self.opq.rotation
 
         # 2+3) coarse k-means over the full sample, in one of three modes
+        rotated_rows = None
         device_fit = (
             not device_src
             and not isinstance(sample, np.memmap)
@@ -429,34 +445,32 @@ class IVFPQIndex:
                 self._kmeans_device_resident(sample, kmeans_iters=kmeans_iters)
             mode = "device"
         else:
-            # rotate chunk-wise into a disk memmap, re-read every
-            # iteration; host RSS stays O(chunk)
+            # rotate the rows this rank sums (its block of the one-process
+            # windows; every row in one process) into a disk memmap,
+            # re-read every iteration; host RSS stays O(window)
             owns_workdir = workdir is None
             workdir = (Path(tempfile.mkdtemp(prefix="astpu_train_")) if owns_workdir
                        else Path(workdir))
             workdir.mkdir(parents=True, exist_ok=True)
-            rot_path = workdir / "train_rot.f32"
-            xr_mm = None
+            rot_path = workdir / ("train_rot.f32" if self.mesh.size == 1
+                                  else f"train_rot.p{self.mesh.rank}.f32")
+            step = self.TRAIN_WINDOW_ROWS
+            lo, hi, _ = shard_rows(-(-n // step), self.mesh)
+            src = None
             try:
-                xr_mm = np.memmap(rot_path, dtype=np.float32, mode="w+", shape=(n, dim))
-                rot = torch.from_numpy(self.rotation).to(self.device)
-                step = 1 << 18
-                for lo in range(0, n, step):
-                    xc = np.asarray(sample[lo:lo + step], np.float32)
-                    if self.spherical:  # the rotation is orthogonal: norms persist
-                        xc = _normalize_rows(xc)
-                    xt = torch.from_numpy(np.ascontiguousarray(xc)).to(self.device)
-                    xr_mm[lo:lo + step] = (xt @ rot).cpu().numpy()
-                xr_mm.flush()
+                src = _RotatedSample(sample, self.rotation, self.device, self.spherical,
+                                     lo * step, min(hi * step, n), rot_path, step)
                 with timer.stage("kmeans"):
-                    self.kmeans.fit(xr_mm, iters=kmeans_iters, prenormalized=True)
+                    self.kmeans.fit([src], iters=kmeans_iters, batch_rows=step,
+                                    prenormalized=True)
             finally:
-                del xr_mm
+                del src
                 if owns_workdir:
                     shutil.rmtree(workdir, ignore_errors=True)
                 else:
                     rot_path.unlink(missing_ok=True)
             mode = "streamed"
+            rotated_rows = min(hi * step, n) - lo * step
 
         # 4) PQ on the sub-sample's residuals, computed on the card
         with timer.stage("pq_residuals"):
@@ -465,6 +479,8 @@ class IVFPQIndex:
         self._finish_train_stats(timer)
         self.train_stats["train_mode"] = mode
         self.train_stats["pq_train_rows"] = int(len(sub))
+        if rotated_rows is not None:    # the rows this rank rotated to disk
+            self.train_stats["rotated_rows"] = int(rotated_rows)
         return self.train_stats
 
     def _stage_rows(self, x: np.ndarray):
@@ -595,6 +611,11 @@ class IVFPQIndex:
         stays O(corpus/80). Without it, everything stays in RAM.
         ``prefetch`` chunks are pulled ahead on a reader thread.
 
+        Over a mesh of several ranks each rank passes only its own chunks,
+        chunk ``i`` of the stream to rank ``i % W`` (dealt before they are
+        read: ``deal``), and the same ``lists_dir`` (required; module
+        docstring).
+
         ``fill_stats`` then holds rows, rows_per_s and seconds of each
         stage: encode (the card's time in the fused encode, by CUDA
         events; host time on the CPU), download (waiting for codes to
@@ -666,7 +687,9 @@ class IVFPQIndex:
         """Fill from pre-encoded ``(assignments, codes, positions)``
         chunks: the spill + pack + install tail shared with
         ``fill_stream``. A filled index is not filled again: refills go
-        through the empty (trained) artifact."""
+        through the empty (trained) artifact. Over a mesh each rank passes
+        its own chunks, ``i % W == rank`` of the stream, in order, and the
+        same ``lists_dir`` (required at W > 1)."""
         self._refuse_mutation("fill")
         if not self.is_trained:
             raise RuntimeError("train() before fill()")
@@ -674,61 +697,30 @@ class IVFPQIndex:
             raise RuntimeError(
                 "index already filled; load the empty (trained) artifacts "
                 "and re-fill the full corpus instead of appending")
+        if self.mesh.size > 1 and lists_dir is None:
+            raise ValueError(
+                f"a fill over a mesh of {self.mesh.size} ranks needs lists_dir: each "
+                "rank spills beside it and rank 0 packs the lists there")
+        if lists_dir is not None:
+            return self._fill_spilled(iter(chunks), Path(lists_dir))
         t_start = time.perf_counter()
         spill_s = 0.0
-        stream = iter(chunks)
-        if lists_dir is None:
-            codes_parts, assign_parts, pos_parts = [], [], []
-            for assign, codes, positions in stream:
-                t0 = time.perf_counter()
-                codes_parts.append(np.asarray(codes, np.uint8))
-                assign_parts.append(np.asarray(assign))
-                pos_parts.append(np.asarray(positions))
-                spill_s += time.perf_counter() - t0
+        codes_parts, assign_parts, pos_parts = [], [], []
+        for assign, codes, positions in chunks:
             t0 = time.perf_counter()
-            packed = pack_lists(
-                np.concatenate(codes_parts),
-                np.concatenate(pos_parts),
-                np.concatenate(assign_parts),
-                self.n_lists,
-                seg_size=self.seg_size,
-                transposed=True,
-            )
-        else:
-            import shutil
-            import tempfile
-
-            lists_dir = Path(lists_dir)
-            lists_dir.mkdir(parents=True, exist_ok=True)
-            spill = Path(tempfile.mkdtemp(prefix="astpu_fill_", dir=lists_dir.parent))
-            n_total = 0
-            try:
-                with open(spill / "codes.u8", "wb") as cf, \
-                     open(spill / "assign.i32", "wb") as af, \
-                     open(spill / "pos.i64", "wb") as pf:
-                    for assign, codes, positions in stream:
-                        t0 = time.perf_counter()
-                        np.ascontiguousarray(codes, np.uint8).tofile(cf)
-                        np.asarray(assign).astype(np.int32).tofile(af)
-                        np.asarray(positions, np.int64).tofile(pf)
-                        n_total += len(codes)
-                        spill_s += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                codes_mm = np.memmap(spill / "codes.u8", dtype=np.uint8, mode="r",
-                                     shape=(n_total, self.code_bytes))
-                pos_mm = np.memmap(spill / "pos.i64", dtype=np.int64, mode="r",
-                                   shape=(n_total,))
-                # all three spill streams stay memmapped: the pack's count
-                # and routing passes read assignments slab by slab
-                assign = np.memmap(spill / "assign.i32", dtype=np.int32, mode="r",
-                                   shape=(n_total,))
-                packed = pack_lists_external(
-                    codes_mm, pos_mm, assign, self.n_lists,
-                    seg_size=self.seg_size, out_dir=lists_dir, transposed=True,
-                )
-                del codes_mm, pos_mm, assign
-            finally:
-                shutil.rmtree(spill, ignore_errors=True)
+            codes_parts.append(np.asarray(codes, np.uint8))
+            assign_parts.append(np.asarray(assign))
+            pos_parts.append(np.asarray(positions))
+            spill_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        packed = pack_lists(
+            np.concatenate(codes_parts),
+            np.concatenate(pos_parts),
+            np.concatenate(assign_parts),
+            self.n_lists,
+            seg_size=self.seg_size,
+            transposed=True,
+        )
         pack_s = time.perf_counter() - t0
         seconds = time.perf_counter() - t_start
         t0 = time.perf_counter()
@@ -737,6 +729,79 @@ class IVFPQIndex:
                            "rows_per_s": packed.n_rows / seconds if seconds else 0.0,
                            "spill_s": spill_s, "pack_s": pack_s,
                            "install_s": time.perf_counter() - t0}
+
+    def _fill_spilled(self, stream, lists_dir: Path) -> None:
+        """The fill's tail with ``lists_dir`` (the production path, in one
+        process or over a mesh): each rank spills its chunks' codes,
+        assignments and positions to ``<parent>/.astpu_spill/p<rank>/``;
+        rank 0 packs them into ``lists_dir`` with the external pack (a
+        single writer), straight from its own spill at W = 1, else from
+        every rank's spill merged back into stream order (chunk ``i`` from
+        rank ``i % W``), so the lists equal one process's byte for byte;
+        then every rank installs its own lists. Over a group each rank
+        also leaves an ``.owner_p<rank>.json`` breadcrumb in ``lists_dir``
+        and the ranks meet at a barrier before and after the pack (the
+        JAX package's ``_fill_encoded_multihost``)."""
+        t_start = time.perf_counter()
+        w, rank = self.mesh.size, self.mesh.rank
+        spill_root = lists_dir.parent / ".astpu_spill"
+        mine = spill_root / f"p{rank}"
+        if mine.exists():
+            shutil.rmtree(mine)
+        mine.mkdir(parents=True)
+        lists_dir.mkdir(parents=True, exist_ok=True)
+        rows, spill_s = [], 0.0
+        with open(mine / "codes.u8", "wb") as cf, open(mine / "assign.i32", "wb") as af, \
+             open(mine / "pos.i64", "wb") as pf:
+            for assign, codes, positions in stream:
+                t0 = time.perf_counter()
+                np.ascontiguousarray(codes, np.uint8).tofile(cf)
+                np.asarray(assign).astype(np.int32).tofile(af)
+                np.asarray(positions, np.int64).tofile(pf)
+                rows.append(len(codes))
+                spill_s += time.perf_counter() - t0
+        n_local = int(sum(rows))
+        if self.mesh.collective:
+            np.asarray(rows, np.int64).tofile(mine / "rows.i64")
+            logger.info("fill[rank %d/%d]: spilled %d rows of %d chunks", rank, w, n_local,
+                        len(rows))
+            (lists_dir / f".owner_p{rank}.json").write_text(json.dumps(
+                {"process": rank, "rows": n_local, "chunks": len(rows)}))
+        t0 = time.perf_counter()
+        process_barrier(self.mesh)
+        wait_s = time.perf_counter() - t0
+        pack_s = 0.0
+        if rank == 0:
+            t0 = time.perf_counter()
+            try:
+                src = mine
+                if w > 1:
+                    _merge_spills(spill_root, w, self.code_bytes)
+                    src = spill_root
+                n_total = (src / "pos.i64").stat().st_size // 8
+                # all three spill streams stay memmapped: the pack's count
+                # and routing passes read assignments slab by slab
+                pack_lists_external(
+                    np.memmap(src / "codes.u8", dtype=np.uint8, mode="r",
+                              shape=(n_total, self.code_bytes)),
+                    np.memmap(src / "pos.i64", dtype=np.int64, mode="r", shape=(n_total,)),
+                    np.memmap(src / "assign.i32", dtype=np.int32, mode="r", shape=(n_total,)),
+                    self.n_lists, seg_size=self.seg_size, out_dir=lists_dir, transposed=True)
+            finally:
+                shutil.rmtree(spill_root, ignore_errors=True)
+            pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        process_barrier(self.mesh)
+        wait_s += time.perf_counter() - t0
+        seconds = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        packed = load_lists(lists_dir, mmap=True)
+        self._install(packed)
+        self.fill_stats = {"rows": int(packed.n_rows), "seconds": seconds,
+                           "rows_per_s": packed.n_rows / seconds if seconds else 0.0,
+                           "spill_s": spill_s, "pack_s": pack_s, "barrier_s": wait_s,
+                           "install_s": time.perf_counter() - t0, "rank": rank,
+                           "mesh_size": w, "rank_rows": n_local, "rank_chunks": len(rows)}
 
     # -- install -----------------------------------------------------------------
 
@@ -1143,6 +1208,66 @@ class IVFPQIndex:
         if (d / "lists").is_dir():
             idx._install(load_lists(d / "lists", mmap=True))
         return idx
+
+
+class _RotatedSample:
+    """The rotated training sample as ``KMeans.fit`` reads it in the
+    streamed mode: the rows ``[lo, hi)`` that it sums here (a rank's
+    block; every row in one process) rotated once, ``step`` rows at a time
+    on the one-process grid, into a disk memmap re-read every iteration;
+    a row selection (the init rows) gathered from the sample and rotated
+    on demand, the same way on every rank."""
+
+    def __init__(self, sample, rotation, device, spherical: bool, lo: int, hi: int,
+                 path: Path, step: int):
+        self.sample, self.lo, self.hi = sample, lo, hi
+        self.shape = sample.shape
+        self._rot = torch.from_numpy(rotation).to(device)
+        self._device, self._spherical = device, spherical
+        self._mm = None
+        if hi > lo:
+            self._mm = np.memmap(path, dtype=np.float32, mode="w+",
+                                 shape=(hi - lo, sample.shape[1]))
+            for a in range(lo, hi, step):
+                b = min(a + step, hi)
+                self._mm[a - lo:b - lo] = self._rotate(sample[a:b])
+            self._mm.flush()
+
+    def _rotate(self, x) -> np.ndarray:
+        x = np.asarray(x, np.float32)
+        if self._spherical:     # the rotation is orthogonal: norms persist
+            x = _normalize_rows(x)
+        xt = torch.from_numpy(np.ascontiguousarray(x)).to(self._device)
+        return (xt @ self._rot).cpu().numpy()
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            if not self.lo <= key.start <= key.stop <= self.hi:
+                raise IndexError(f"rows {key.start}:{key.stop} outside {self.lo}:{self.hi}")
+            return self._mm[key.start - self.lo:key.stop - self.lo]
+        return self._rotate(self.sample[np.asarray(key)])
+
+
+def _merge_spills(spill_root: Path, w: int, code_bytes: int) -> None:
+    """Every rank's spill (``p<rank>/``: codes, assignments, positions and
+    the rows of each of its chunks) merged into ``spill_root`` in stream
+    order: chunk ``i`` is the next chunk of rank ``i % W``. Each input is
+    read front to back and the output is appended."""
+    names = (("codes.u8", code_bytes), ("assign.i32", 4), ("pos.i64", 8))
+    rows = [np.fromfile(spill_root / f"p{r}" / "rows.i64", np.int64) for r in range(w)]
+    srcs = [[open(spill_root / f"p{r}" / name, "rb") for name, _ in names] for r in range(w)]
+    outs = [open(spill_root / name, "wb") for name, _ in names]
+    try:
+        for i in range(sum(len(r) for r in rows)):
+            r, j = i % w, i // w
+            for src, out, (_, width) in zip(srcs[r], outs, names):
+                out.write(src.read(int(rows[r][j]) * width))
+    finally:
+        for f in outs + [f for fs in srcs for f in fs]:
+            f.close()
 
 
 def _json_safe(obj):

@@ -24,18 +24,32 @@ On the card:
   iteration). The host draws every random number (init rows, split
   jitter) from ``np.random.default_rng(seed)`` in the JAX package's
   order, so one seed gives both packages the same init and repairs.
+
+Over a mesh (``mesh=``, ``parallel/mesh.py``) every rank passes the whole
+sample, as every JAX process does, and draws the same random numbers;
+rank ``r`` assigns and sums only its block of rows (``shard_rows``), made
+of whole windows or chunks, the units one process sums (with several
+sources, a block of the one-process windows). Each unit's f32
+sums are added in f64, and each Lloyd step's sums, counts and objective
+are summed over the ranks in rank order (``sum_in_rank_order``) before
+the replicated update: the centroids are the same bits on every rank and
+from run to run at a fixed W, and at one unit a rank (or f64 sums that
+round nowhere) the bits of one process. ``assign`` returns every row's
+result on every rank. A rank whose block is empty still joins every
+collective.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import Iterable
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..ops.topk import streaming_topk
+from ..parallel.mesh import Mesh, all_gather, index_mesh, shard_rows, sum_in_rank_order
 
 logger = logging.getLogger(__name__)
 
@@ -104,7 +118,8 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Te
 
 
 class KMeans:
-    """Spherical (``-N``) or plain-L2 k-means on one device.
+    """Spherical (``-N``) or plain-L2 k-means on one device, or over the
+    ranks of a mesh.
 
     ``spherical=False`` is true Lloyd's-L2: assignment runs
     argmax(x.c - ||c||^2/2) == argmin ||x - c||^2 through the same top-k
@@ -128,15 +143,50 @@ class KMeans:
         impl: str = "auto",
         seed: int = 0,
         device=None,
+        mesh: Mesh | None = None,
     ):
         self.k = k
         self.spherical = spherical
         self.chunk = chunk
         self.impl = impl
         self.seed = seed
-        self.device = resolve_device(device)
+        self.mesh = index_mesh(mesh, device)
+        self.device = self.mesh.device
         self.centroids: np.ndarray | None = None
         self.stats: dict = {}
+        self._reduce_log: list = []
+
+    def _block(self, n: int, unit: int) -> tuple[int, int]:
+        """This rank's rows ``[lo, hi)`` of an ``n``-row sample, in whole
+        ``unit``-row windows."""
+        lo, hi, _ = shard_rows(n, self.mesh, unit)
+        return lo, hi
+
+    def _reduce(self, *partials: torch.Tensor) -> tuple:
+        """Each rank's partial sums -> their sums over the mesh, in rank
+        order; the seconds and bytes of each step's reduction are logged
+        for ``stats``. Without a group: the partials."""
+        if not self.mesh.collective:
+            return partials
+        on_card = self.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = tuple(sum_in_rank_order(self.mesh, t) for t in partials)
+        if on_card:
+            torch.cuda.synchronize(self.device)
+        self._reduce_log.append((time.perf_counter() - t0,
+                                 sum(t.numel() * t.element_size() for t in partials)))
+        return out
+
+    def _mesh_stats(self) -> dict:
+        """The mesh's part of ``stats``: its size and, per Lloyd step, the
+        reduction's seconds and bytes (each rank's partials)."""
+        if not self.mesh.collective:
+            return {}
+        return {"mesh_size": self.mesh.size,
+                "reduce_s": [t for t, _ in self._reduce_log],
+                "reduce_bytes": [b for _, b in self._reduce_log]}
 
     # -- one window ------------------------------------------------------------
 
@@ -176,10 +226,12 @@ class KMeans:
 
     def _run(self, windows, n_total: int, rng, *, iters: int, tol: float) -> np.ndarray:
         """Lloyd iterations over ``windows()`` (an iterable of device
-        [b, D] row blocks, re-read each iteration); per-window f32 sums
-        accumulate in f64, as the JAX package accumulates its per-window
-        partials on the host."""
+        [b, D] row blocks of this rank's rows, re-read each iteration);
+        per-window f32 sums accumulate in f64, as the JAX package
+        accumulates its per-window partials on the host, then reduce over
+        the mesh."""
         dim = self.centroids.shape[1]
+        self._reduce_log = []
         objective_hist, split_hist = [], []
         for it in range(iters):
             c_pad = self._centroids_padded()
@@ -192,6 +244,8 @@ class KMeans:
                 counts += cnt
                 obj += float(o)
             del c_pad
+            sums, counts, obj_t = self._reduce(sums, counts, torch.tensor(obj, dtype=torch.float64))
+            obj = float(obj_t)
             n_split, delta = self._lloyd_update(
                 sums.cpu().numpy(), counts.cpu().numpy().astype(np.float64), rng)
             split_hist.append(n_split)
@@ -208,6 +262,7 @@ class KMeans:
             "objective": objective_hist,
             "empty_splits": split_hist,
             "spherical": self.spherical,
+            **self._mesh_stats(),
         }
         return self.centroids
 
@@ -215,8 +270,9 @@ class KMeans:
 
     def _update_device(self, c_pad, sums, counts, e_dst, e_src, eps):
         """The Lloyd update and the empty-split application on the card
-        (the JAX package's ``_build_update``): -> (next padded centroids,
-        delta). ``e_src``/``e_dst``/``eps`` are the host's picks."""
+        (the JAX package's ``_build_update``), from f64 sums in f64 as the
+        host's update computes it: -> (next padded f32 centroids, delta).
+        ``e_src``/``e_dst``/``eps`` are the host's picks."""
         k = self.k
         c = c_pad[:k]
         new_c = torch.where(counts[:, None] > 0,
@@ -239,16 +295,22 @@ class KMeans:
         (``src.device_chunk(j)``), accumulators and centroids stay
         there, and the host sees only [k] counts and two scalars an
         iteration. The production ``-c 65536`` x 10M-row training path.
+        Each chunk's f32 sums accumulate in f64 on the card.
 
         ``src`` has ``__len__``, ``shape``, ``chunk_rows``,
         ``num_chunks``, ``device_chunk(j)`` -> a [chunk_rows, D] f32
         tensor on this device, ``gather_rows(idx)`` -> numpy rows, and
-        ``prenormalized``."""
+        ``prenormalized``. Over a mesh rank ``r`` makes only its block of
+        whole chunks."""
         n = len(src)
         dim = src.shape[1]
         if n < self.k:
             raise ValueError(f"need >= k={self.k} training rows, got {n}")
         norm = self.spherical and not getattr(src, "prenormalized", False)
+        ch = src.chunk_rows
+        lo, hi = self._block(n, ch)
+        my_chunks = range(lo // ch, min(-(-hi // ch), src.num_chunks))
+        self._reduce_log = []
 
         rng = np.random.default_rng(self.seed)
         init_idx = np.sort(rng.choice(n, size=self.k, replace=False))
@@ -260,17 +322,18 @@ class KMeans:
 
         objective_hist, split_hist = [], []
         for it in range(iters):
-            sums = torch.zeros((self.k, dim), dtype=torch.float32, device=self.device)
+            sums = torch.zeros((self.k, dim), dtype=torch.float64, device=self.device)
             counts = torch.zeros(self.k, dtype=torch.int64, device=self.device)
-            obj = torch.zeros((), dtype=torch.float32, device=self.device)
-            for j in range(src.num_chunks):
+            obj = torch.zeros((), dtype=torch.float64, device=self.device)
+            for j in my_chunks:
                 x = src.device_chunk(j)
-                for lo in range(0, x.shape[0], batch_rows):
-                    s, cnt, o = self._step(x[lo:lo + batch_rows], c_pad)
+                for w in range(0, x.shape[0], batch_rows):
+                    s, cnt, o = self._step(x[w:w + batch_rows], c_pad)
                     sums += s
                     counts += cnt
                     obj += o
                 del x
+            sums, counts, obj = self._reduce(sums, counts, obj)
             counts_h = counts.cpu().numpy().astype(np.float64)
 
             # the host picks empty-split (dst, src) pairs from counts alone
@@ -315,6 +378,7 @@ class KMeans:
             "empty_splits": split_hist,
             "spherical": self.spherical,
             "mode": "device_stream",
+            **self._mesh_stats(),
         }
         return self.centroids
 
@@ -369,7 +433,10 @@ class KMeans:
             x = _normalize_rows(x) if norm else x
             return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+        # this rank's block of the one-process windows, dealt whole
         spans = list(_windows(sources, batch_rows))
+        lo, hi, _ = shard_rows(len(spans), self.mesh)
+        spans = spans[lo:hi]
         staged = [load_window(*w) for w in spans] if on_device else None
 
         def windows():
@@ -389,7 +456,8 @@ class KMeans:
         (``IVFPQIndex._train_big``): the sample was rotated on the card
         and never returns to the host; only init rows and per-iteration
         centroid sums do. The kernel runs on windows of ``batch_rows``
-        rows (the JAX package passes the whole sample to one call)."""
+        rows (the JAX package passes the whole sample to one call). Over
+        a mesh every rank holds the whole sample and sums its block."""
         n_total = x.shape[0] if n_total is None else n_total
         if n_total < self.k:
             raise ValueError(f"need >= k={self.k} training rows, got {n_total}")
@@ -398,9 +466,11 @@ class KMeans:
         init_rows = x[torch.from_numpy(init_idx).to(x.device)].float().cpu().numpy()
         self.centroids = _normalize_rows(init_rows) if self.spherical else init_rows
 
+        lo, hi = self._block(n_total, batch_rows)
+
         def windows():
-            for lo in range(0, n_total, batch_rows):
-                yield x[lo:min(lo + batch_rows, n_total)]
+            for w in range(lo, hi, batch_rows):
+                yield x[w:min(w + batch_rows, hi)]
 
         return self._run(windows, n_total, rng, iters=iters, tol=tol)
 
@@ -427,21 +497,30 @@ class KMeans:
     def assign(self, x: np.ndarray, *, batch_rows: int = 1 << 18
                ) -> tuple[np.ndarray, np.ndarray]:
         """Return (scores, centroid ids) for rows of x, streamed through
-        the card in windows of ``batch_rows`` rows."""
+        the card in windows of ``batch_rows`` rows. Over a mesh every
+        rank passes every row, assigns its block and receives every
+        row's result (one all-gather, as the JAX package replicates it
+        over several processes)."""
         if self.centroids is None:
             raise RuntimeError("fit() first")
         x = np.asarray(x, np.float32)
         if self.spherical:
             x = _normalize_rows(x)
         c_pad = self._centroids_padded()
-        scores = np.empty(len(x), np.float32)
-        assign = np.empty(len(x), np.int64)
-        for lo in range(0, len(x), batch_rows):
-            xc = torch.from_numpy(np.ascontiguousarray(x[lo:lo + batch_rows])).to(self.device)
+        lo, hi, per = shard_rows(len(x), self.mesh, batch_rows)
+        scores = np.zeros(per, np.float32)
+        assign = np.zeros(per, np.int64)
+        for w in range(lo, hi, batch_rows):
+            xc = torch.from_numpy(np.ascontiguousarray(x[w:min(w + batch_rows, hi)])).to(
+                self.device)
             v, a = self._top1(xc, c_pad)
-            scores[lo:lo + len(xc)] = v.cpu().numpy()
-            assign[lo:lo + len(xc)] = a.cpu().numpy()
-        return scores, assign
+            scores[w - lo:w - lo + len(xc)] = v.cpu().numpy()
+            assign[w - lo:w - lo + len(xc)] = a.cpu().numpy()
+        if not self.mesh.collective:
+            return scores[:hi - lo], assign[:hi - lo]
+        n = len(x)
+        return (all_gather(self.mesh, torch.from_numpy(scores)).reshape(-1)[:n].numpy(),
+                all_gather(self.mesh, torch.from_numpy(assign)).reshape(-1)[:n].numpy())
 
 
 def _windows(sources, batch_rows):

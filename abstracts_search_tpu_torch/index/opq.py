@@ -11,7 +11,11 @@ The port of the JAX package's ``index/opq.py`` (the faiss
 
 The sample is staged on the card once; rotate, PQ Lloyd, encode/decode,
 the gram x^T x_hat and the error run there. The [D, D] SVD stays host
-float64 numpy.
+float64 numpy. Each window's f32 gram is added in f64. Over a mesh
+(``mesh=``) every rank stages the whole sub-sample; rank ``r`` encodes
+its block of whole windows, and the gram and the error are summed over
+the ranks in rank order, so the SVD runs on the same gram on every rank
+and every rank ends with the same rotation.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import logging
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..parallel.mesh import Mesh, index_mesh, sum_in_rank_order
 from .pq import ProductQuantizer
 
 logger = logging.getLogger(__name__)
@@ -41,26 +45,32 @@ def _rotate(x: np.ndarray, r: np.ndarray, device) -> np.ndarray:
 
 class OPQ:
     def __init__(self, dim: int, m: int = 64, nbits: int = 8, *, seed: int = 0,
-                 device=None):
+                 device=None, mesh: Mesh | None = None):
         self.dim = dim
-        self.device = resolve_device(device)
-        self.pq = ProductQuantizer(dim, m, nbits, seed=seed, device=self.device)
+        self.mesh = index_mesh(mesh, device)
+        self.device = self.mesh.device
+        self.pq = ProductQuantizer(dim, m, nbits, seed=seed, mesh=self.mesh)
         self.rotation = np.eye(dim, dtype=np.float32)  # R: applied as x @ R
         self.stats: dict = {}
         self._staged = None
 
     def _gram(self, x: torch.Tensor, xr: torch.Tensor, c: torch.Tensor):
         """Encode xr, decode, then the gram x^T x_hat and the squared
-        error ||xr - x_hat||^2, over windows of rows."""
+        error ||xr - x_hat||^2 (f64), over windows of this rank's rows,
+        summed over the mesh."""
         pq = self.pq
-        gram = torch.zeros((self.dim, self.dim), dtype=torch.float32, device=x.device)
-        err = torch.zeros((), dtype=torch.float32, device=x.device)
+        gram = torch.zeros((self.dim, self.dim), dtype=torch.float64, device=x.device)
+        err = torch.zeros((), dtype=torch.float64, device=x.device)
         w = pq.window_rows()
-        for lo in range(0, x.shape[0], w):
-            xr3 = xr[lo:lo + w].reshape(-1, pq.m, pq.dsub)
+        lo, hi = pq.block(x.shape[0])
+        for a in range(lo, hi, w):
+            b = min(a + w, hi)
+            xr3 = xr[a:b].reshape(-1, pq.m, pq.dsub)
             xhat = pq.reconstruct(pq.assign(xr3, c), c).reshape(xr3.shape[0], self.dim)
-            gram += x[lo:lo + w].T @ xhat
-            err += torch.sum(torch.square(xr[lo:lo + w] - xhat))
+            gram += x[a:b].T @ xhat
+            err += torch.sum(torch.square(xr[a:b] - xhat))
+        if self.mesh.collective:
+            gram, err = (sum_in_rank_order(self.mesh, t) for t in (gram, err))
         return gram, err
 
     def train(

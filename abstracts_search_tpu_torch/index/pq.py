@@ -12,6 +12,13 @@ f32 segment sum over (subspace, code). The [n, M, ksub] score block is
 bounded by windowing rows (``SCORE_BYTES``). Random draws (init rows,
 empty-code reseeds) come from ``np.random.default_rng(seed)`` in the JAX
 package's order.
+
+Over a mesh (``mesh=``) every rank passes the whole sample and draws the
+same numbers; rank ``r`` assigns and sums its block of rows (whole
+windows, the units one process sums; each window's f32 sums added in
+f64), and each iteration's sums, counts and error are summed over the
+ranks in rank order (``sum_in_rank_order``), so every rank ends with the
+same codebooks, bit for bit, and at one window a rank one process's.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import logging
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..parallel.mesh import Mesh, index_mesh, shard_rows, sum_in_rank_order
 from .kmeans import segment_sum
 
 logger = logging.getLogger(__name__)
@@ -42,6 +49,7 @@ class ProductQuantizer:
         *,
         seed: int = 0,
         device=None,
+        mesh: Mesh | None = None,
     ):
         if dim % m != 0:
             raise ValueError(f"dim {dim} not divisible by M {m}")
@@ -53,13 +61,20 @@ class ProductQuantizer:
         self.ksub = 1 << nbits
         self.dsub = dim // m
         self.seed = seed
-        self.device = resolve_device(device)
+        self.mesh = index_mesh(mesh, device)
+        self.device = self.mesh.device
         self.centroids: np.ndarray | None = None  # [M, ksub, dsub]
         self.stats: dict = {}
 
     @property
     def is_trained(self) -> bool:
         return self.centroids is not None
+
+    def block(self, n: int, unit: int | None = None) -> tuple[int, int]:
+        """This rank's rows ``[lo, hi)`` of an ``n``-row sample, in whole
+        ``unit``-row windows (by default the assignment's)."""
+        lo, hi, _ = shard_rows(n, self.mesh, unit or self.window_rows())
+        return lo, hi
 
     # -- on the card ---------------------------------------------------------------
 
@@ -83,12 +98,12 @@ class ProductQuantizer:
         return c[torch.arange(self.m, device=c.device)[None, :], codes]
 
     def _train_step(self, x3: torch.Tensor, c: torch.Tensor):
-        """One batch of Lloyd: -> (f32 sums [M, ksub, dsub], counts
-        [M, ksub] i64, squared error f32)."""
+        """One batch of Lloyd: -> (sums [M, ksub, dsub], counts [M, ksub]
+        i64, squared error), each window's f32 sums added in f64."""
         m, ksub, dsub = self.m, self.ksub, self.dsub
-        sums = torch.zeros((m * ksub, dsub), dtype=torch.float32, device=x3.device)
+        sums = torch.zeros((m * ksub, dsub), dtype=torch.float64, device=x3.device)
         counts = torch.zeros(m * ksub, dtype=torch.int64, device=x3.device)
-        err = torch.zeros((), dtype=torch.float32, device=x3.device)
+        err = torch.zeros((), dtype=torch.float64, device=x3.device)
         base = torch.arange(m, device=x3.device) * ksub
         w = self.window_rows()
         for lo in range(0, x3.shape[0], w):
@@ -115,20 +130,21 @@ class ProductQuantizer:
         n = len(x)
         if n < self.ksub:
             raise ValueError(f"need >= ksub={self.ksub} rows, got {n}")
-        spans = [(lo, min(lo + batch_rows, n)) for lo in range(0, n, batch_rows)]
+        lo, hi = self.block(n, batch_rows)
+        spans = [(w, min(w + batch_rows, hi)) for w in range(lo, hi, batch_rows)]
 
         def upload(lo, hi):
             return torch.from_numpy(x[lo:hi]).to(self.device)
 
-        staged = ([upload(*s) for s in spans] if x.nbytes <= self.DEVICE_BUDGET_BYTES
+        staged = ([upload(*sp) for sp in spans] if x.nbytes <= self.DEVICE_BUDGET_BYTES
                   else None)
 
         def batches():
             if staged is not None:
                 yield from staged
             else:
-                for s in spans:
-                    yield upload(*s)
+                for sp in spans:
+                    yield upload(*sp)
 
         def fetch_rows(idx: np.ndarray) -> np.ndarray:
             return x[idx]
@@ -141,23 +157,26 @@ class ProductQuantizer:
         f32, of which the first ``n`` rows (all by default) train.
         Nothing sample-sized crosses to the host: only per-iteration sums
         and the rows for init and reseeds. OPQ's inner loop and the
-        residual training take this path."""
+        residual training take this path. Over a mesh every rank holds
+        the whole sample and sums its block."""
         n = x3.shape[0] if n is None else n
         if n < self.ksub:
             raise ValueError(f"need >= ksub={self.ksub} rows, got {n}")
         x3 = x3[:n]
+        lo, hi = self.block(n)
 
         def fetch_rows(idx: np.ndarray) -> np.ndarray:
             # gather on the card, download only the requested rows
             return x3[torch.from_numpy(np.sort(idx)).to(x3.device)].cpu().numpy()
 
-        return self._lloyd(lambda: iter((x3,)), n, fetch_rows, iters=iters, tol=tol)
+        return self._lloyd(lambda: iter((x3[lo:hi],)), n, fetch_rows, iters=iters, tol=tol)
 
     def _lloyd(self, batches, n, fetch_rows, *, iters, tol) -> np.ndarray:
         """Shared batched-subspace Lloyd loop over ``batches()`` (device
-        [b, M, dsub] blocks, re-read each iteration); ``fetch_rows(idx)
-        -> [len(idx), M, dsub]`` supplies rows for init and empty-code
-        reseeds. Per-batch f32 sums accumulate in f64."""
+        [b, M, dsub] blocks of this rank's rows, re-read each iteration);
+        ``fetch_rows(idx) -> [len(idx), M, dsub]`` supplies rows for init
+        and empty-code reseeds. Per-batch f32 sums accumulate in f64,
+        then sum over the mesh."""
         rng = np.random.default_rng(self.seed)
         init = rng.choice(n, size=self.ksub, replace=False)
         c = np.transpose(
@@ -177,6 +196,10 @@ class ProductQuantizer:
                 sums += s.double()
                 counts += cnt
                 err += float(e)
+            if self.mesh.collective:
+                sums, counts, err_t = (sum_in_rank_order(self.mesh, t) for t in
+                                       (sums, counts, torch.tensor(err, dtype=torch.float64)))
+                err = float(err_t)
             sums = sums.cpu().numpy()
             counts = counts.cpu().numpy().astype(np.float64)
             mse = err / (n * self.dim)

@@ -442,7 +442,8 @@ def get_embedder(name: str, cfg: Config, device=None, mesh=None):
     """The query encoder ``name`` ("hash", "stella" or "auto") on
     ``device``. Over a mesh with a process group only rank 0 encodes
     (the whole encoder, on its card) and broadcasts the query vectors:
-    the other ranks get None."""
+    the other ranks get None. The build passes no mesh (``Driver``):
+    every rank embeds its own partitions on its own card."""
     if mesh is not None and mesh.collective and mesh.rank != 0:
         return None
     if name == "hash":

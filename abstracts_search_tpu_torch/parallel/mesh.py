@@ -6,6 +6,13 @@ per card (or per process), rank ``r`` of ``W`` owning the IVF lists
 centroids and codebooks are replicated; each rank scans its own shard and
 the ranks' top-k lists merge by one all-gather (``topk_merge.py``).
 
+The build runs over the same mesh: each rank trains on its block of the
+sample (``shard_rows``) and the Lloyd sums cross it by
+``sum_in_rank_order``, which adds the ranks' partials in rank order, so
+every rank holds the same bits; the fill deals a reader's row groups
+round-robin (``deal``) before any is read; small records (a rank's stage
+seconds) travel by ``gather_objects``.
+
 A ``Mesh`` is a small value: ``rank``, ``size``, ``device``, ``group``.
 ``build_mesh()`` in a process that joined no group gives ``W = 1`` with
 no group, and every index then takes its single-card path: no collective
@@ -57,14 +64,6 @@ class Mesh:
     def owned(self, n_lists: int) -> np.ndarray:
         """[n_lists] bool: the lists this rank owns (``l % size == rank``)."""
         return np.arange(n_lists) % self.size == self.rank
-
-    def refuse_build(self, op: str) -> None:
-        """Over several ranks an index serves only: the sharded build
-        (k-means sums over the mesh, PQ, OPQ, the fill) is not ported."""
-        if self.size > 1:
-            raise NotImplementedError(
-                f"cannot {op}() over a mesh of {self.size} ranks: the port builds in one "
-                "process; serve the built artifact over the mesh")
 
 
 def _local_rank(rank: int) -> int:
@@ -200,11 +199,53 @@ def broadcast(mesh: Mesh, t: torch.Tensor, src: int = 0) -> torch.Tensor:
     return buf.to(t.device)
 
 
+def sum_in_rank_order(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """The sum over the ranks of ``t`` (equal shapes and dtypes on every
+    rank), added rank 0 first: the same bits on every rank, and from run
+    to run at a fixed W. An all-reduce fixes no order of its adds, so the
+    reduction is spelled out: one all-to-all hands rank ``r`` every
+    rank's ``r``-th slice of the flattened tensor, rank ``r`` adds them in
+    rank order, and one all-gather hands every rank every slice's sum.
+    Each rank moves about ``2 (W - 1) / W`` of the tensor's bytes, as a
+    ring all-reduce does. At W = 1 the sum is ``t`` itself. Without a
+    group: ``t``."""
+    if not mesh.collective:
+        return t
+    w, n = mesh.size, t.numel()
+    per = -(-n // w)
+    src = torch.zeros(w * per, dtype=t.dtype, device=_stage_device(mesh))
+    src[:n] = t.reshape(-1)
+    parts = torch.empty_like(src)
+    dist.all_to_all_single(parts, src, group=mesh.group)
+    parts = parts.view(w, per)
+    mine = parts[0].clone()
+    for r in range(1, w):
+        mine += parts[r]
+    return all_gather(mesh, mine).reshape(-1)[:n].reshape(t.shape).to(t.device)
+
+
+def gather_objects(mesh: Mesh, obj) -> list:
+    """Every rank's picklable ``obj``, in rank order (``[obj]`` without a
+    group): small records such as a rank's stage seconds."""
+    if not mesh.collective:
+        return [obj]
+    out = [None] * mesh.size
+    dist.all_gather_object(out, obj, group=mesh.group)
+    return out
+
+
 def process_barrier(mesh: Mesh) -> None:
     """Wait until every rank of the mesh is here (no-op without a group).
     One small all-gather, so it runs under the group's timeout on either
     backend."""
     all_gather(mesh, torch.zeros(1, dtype=torch.int64))
+
+
+def deal(n: int, mesh: Mesh) -> range:
+    """This rank's units (row groups, chunks) of ``n`` dealt round-robin,
+    unit ``i`` to rank ``i % W``: the fill and the streamed tune oracle
+    deal a reader's row groups so, before any is read."""
+    return range(mesh.rank, n, mesh.size)
 
 
 def shard_rows(n: int, mesh: Mesh, chunk: int = 1) -> tuple[int, int, int]:

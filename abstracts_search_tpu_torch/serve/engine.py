@@ -45,7 +45,7 @@ logger = logging.getLogger(__name__)
 
 # the ops of a collective section's header, [op, Q, k, nprobe, D, sources]
 OP_SEARCH, OP_PING, OP_STOP = 1, 2, 3
-# the largest k a search takes (the HTTP API's cap)
+# the largest k a search over a mesh takes (the HTTP API's cap)
 MAX_K = 100
 
 
@@ -237,9 +237,13 @@ class SearchEngine:
 
     def _check_request(self, q, k: int):
         """-> ``q`` as C-contiguous f32 [Q, D]; a malformed request raises
-        ``ValueError`` here, before any collective."""
-        if isinstance(k, bool) or not isinstance(k, (int, np.integer)) or not 1 <= k <= MAX_K:
-            raise ValueError(f"k={k!r}: an integer in [1, {MAX_K}]")
+        ``ValueError`` here, before any collective. Only a collective
+        engine caps k (at ``MAX_K``): one process serves any k, as the
+        JAX engine does (its HTTP handler caps k itself)."""
+        if isinstance(k, bool) or not isinstance(k, (int, np.integer)) or k < 1:
+            raise ValueError(f"k={k!r}: an integer >= 1")
+        if self._collective and k > MAX_K:
+            raise ValueError(f"k={k!r}: an engine over a mesh takes k in [1, {MAX_K}]")
         q = np.ascontiguousarray(q, np.float32)
         if q.ndim != 2 or q.shape[0] < 1 or q.shape[1] != self.index.dim:
             raise ValueError(f"query vectors {q.shape}: need [Q >= 1, {self.index.dim}]")

@@ -141,15 +141,25 @@ class ShardReader:
     def num_shards(self) -> int:
         return len(self.paths)
 
-    def iter_row_groups(self, *, with_ids: bool = True, start_row: int = 0
+    def row_group_rows(self) -> list[int]:
+        """Each row group's rows, in reader order (from the metadata)."""
+        return [f.metadata.row_group(rg).num_rows
+                for f in self._files for rg in range(f.metadata.num_row_groups)]
+
+    def iter_row_groups(self, *, with_ids: bool = True, start_row: int = 0, groups=None
                         ) -> Iterator[tuple[list[str] | None, np.ndarray]]:
-        """Yield (ids, embeddings [n, dim] f32) one row group at a time."""
-        row = 0
+        """Yield (ids, embeddings [n, dim] f32) one row group at a time;
+        ``groups``: only the row groups of these indices (in reader
+        order), the others never read."""
+        want = None if groups is None else set(groups)
+        row = g = 0
         for f in self._files:
             for rg in range(f.metadata.num_row_groups):
                 nrows = f.metadata.row_group(rg).num_rows
-                if row + nrows <= start_row:
-                    row += nrows
+                skip = row + nrows <= start_row or (want is not None and g not in want)
+                row += nrows
+                g += 1
+                if skip:
                     continue
                 cols = ["id", "embedding"] if with_ids else ["embedding"]
                 t = f.read_row_group(rg, columns=cols)
@@ -157,7 +167,17 @@ class ShardReader:
                                   ).reshape(-1, self.dim)
                 ids = t.column("id").to_pylist() if with_ids else None
                 yield ids, embs
-                row += nrows
+
+    def iter_ids(self) -> Iterator[list[str]]:
+        """Each row group's ids, from the id column alone, through file
+        handles of its own (so it may run beside a reader of the
+        embeddings)."""
+        import pyarrow.parquet as pq
+
+        for p in self.paths:
+            f = pq.ParquetFile(p)
+            for rg in range(f.metadata.num_row_groups):
+                yield f.read_row_group(rg, columns=["id"]).column("id").to_pylist()
 
     def read_all(self, *, with_ids: bool = True) -> tuple[list[str] | None, np.ndarray]:
         ids_all: list[str] = []

@@ -218,9 +218,17 @@ class VirtualShardReader:
 
     # -- ShardReader protocol ------------------------------------------------
 
-    def iter_row_groups(self, *, with_ids: bool = True, start_row: int = 0):
+    def row_group_rows(self) -> list[int]:
+        return [self.chunk_rows] * self.num_chunks
+
+    def iter_row_groups(self, *, with_ids: bool = True, start_row: int = 0, groups=None):
+        """``groups``: only the chunks of these indices, the others never
+        made."""
         ch = self.chunk_rows
+        want = None if groups is None else set(groups)
         for ci in range(start_row // ch, self.num_chunks):
+            if want is not None and ci not in want:
+                continue
             x = self.device_chunk(ci)
             lo = ci * ch
             if lo < start_row:          # partial first group
@@ -228,6 +236,12 @@ class VirtualShardReader:
                 lo = start_row
             ids = [f"W{j}" for j in range(lo, ci * ch + ch)] if with_ids else None
             yield ids, x
+
+    def iter_ids(self):
+        """Each chunk's ids, without making its rows."""
+        ch = self.chunk_rows
+        for ci in range(self.num_chunks):
+            yield [f"W{j}" for j in range(ci * ch, ci * ch + ch)]
 
     def read_all(self, *, with_ids: bool = True):
         ids_all, parts = [], []

@@ -57,6 +57,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
           on a training window and a fill chunk; the reopened index
           against its plain path; recall@10 at nprobe 16 of 256
           perturbed corpus rows (fails below 0.5).
+  sharded_build
+          the index build over a mesh, on index_build's data dir and
+          geometry (kept until this phase ends): rank processes (this
+          script with --build-rank) each run, through cli.main with
+          --coordinator, `astpu-torch index train` (the same flags, into
+          a tree of its own), `index fill` and `index tune --force` (on a
+          copy of the one-process empty artifact) and `search`; first W =
+          4 gloo ranks sharing the card, then W = 1 under NCCL. Checks
+          against the one-process build: k-means iterations and empty
+          splits equal, the trained arrays' sha256 equal on every rank,
+          recall@10 at nprobe 16 of the W-trained index (filled here in
+          one process) within 0.01; the filled lists' files sha256-equal
+          (else the rows filed under another list, each with its two best
+          scores), the .owner_p* breadcrumbs' rows summing to the fill's;
+          the tune oracle's arrays byte-equal, every operating point's
+          recall and the chosen nprobe equal; the search's hits (ids,
+          scores) equal. Prints each rank's seconds and launches per
+          command, k-means seconds and kernel-1 launches, each Lloyd
+          step's reduction seconds and bytes, the fill's encode, spill,
+          pack, barrier and install seconds and rows/s, the tune's oracle
+          and sweep, beside the card's name and power limit: W ranks on
+          one card, no scaling number.
   ivf_flat
           IVFFlatIndex with plain L2 (spherical=False) over 2,097,152 x
           1024 f32 rows of the virtual reader (bench.py's shard size):
@@ -140,12 +162,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
           row-major PQ64x8 artifact (4,096 lists, 2,097,152 rows, raw scan
           kernel for byte codes) held against its plain path.
 
-Each path (flat, index_build, ivf_flat, ingest, serve, encoder, hybrid,
-host, sharded, sharded_flat, sharded_nccl, legacy, legacy_pq8, host_pq8)
-runs with every launch count set to 0
-just before it and read just after (in each rank process for the sharded
-paths, summed over the ranks), and fails if one of its kernels never
-launched. Then a ``{"kernels": [...]}`` line with one row per TPU
+Each path (flat, index_build, sharded_build, sharded_build_nccl,
+ivf_flat, ingest, serve, encoder, hybrid, host, sharded, sharded_flat,
+sharded_nccl, legacy, legacy_pq8, host_pq8) runs with every launch count
+set to 0 just before it and read just after (in each rank process for the
+sharded paths, per command, summed over the ranks and commands), and
+fails if one of its kernels never launched. Then a ``{"kernels": [...]}`` line with one row per TPU
 kernel (launches from the paths; times and bounds at the inputs the
 paths gave each kernel: ``ms`` by CUDA events around one wrapper call,
 host work between the events included, ``device_ms`` the kernel's own
@@ -159,6 +181,7 @@ import argparse
 import gc
 import json
 import logging
+import os
 import re
 import shutil
 import statistics
@@ -822,8 +845,6 @@ def build_checks(filled: Path, reader, fill_idx, seed: int) -> dict:
     1 and 3), and recall@10 at nprobe 16 of 256 perturbed corpus rows
     against an exact top-10 streamed over the regenerated chunks."""
     from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
-    from abstracts_search_tpu_torch.ops import topk
-    from abstracts_search_tpu_torch.parallel.topk_merge import merge_topk
 
     res = {}
     # one training window: the device-streamed k-means' own step
@@ -858,33 +879,48 @@ def build_checks(filled: Path, reader, fill_idx, seed: int) -> dict:
     del out, ka, kc, pa, pc, xr, chunk
 
     idx = IVFPQIndex.load(filled, device=BUILD_DEVICE)
-    # 256 perturbed corpus rows: a corpus row plus core-level jitter
+    q, own = perturbed_queries(reader, idx.n, seed)
+    res["vs_plain"] = hold_against_plain(idx, {"perturbed": q}, None)
+    res.update(perturbed_recall(idx, reader, q, own))
+    del idx
+    release()
+    if res["recall_at_10_np16"] < BUILD_MIN_RECALL:
+        raise AssertionError(f"recall@10 {res['recall_at_10_np16']} < {BUILD_MIN_RECALL}")
+    return res
+
+
+def perturbed_queries(reader, n: int, seed: int):
+    """256 perturbed corpus rows: a corpus row plus core-level jitter.
+    -> (queries, their rows)."""
     rng = np.random.default_rng(seed + 5)
-    own = np.sort(rng.choice(idx.n, 256, replace=False))
+    own = np.sort(rng.choice(n, 256, replace=False))
     base = reader.gather_rows(own)
     q = base + (reader.spec.group_noise / np.sqrt(DIM)) * rng.standard_normal(
         base.shape).astype(np.float32)
-    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
-    res["vs_plain"] = hold_against_plain(idx, {"perturbed": q}, None)
+    return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32), own
+
+
+def perturbed_recall(idx, reader, q: np.ndarray, own: np.ndarray) -> dict:
+    """recall@10 at nprobe 16 of the queries ``q`` against an exact top-10
+    streamed over the regenerated chunks (kernel 1)."""
+    from abstracts_search_tpu_torch.ops import topk
+    from abstracts_search_tpu_torch.parallel.topk_merge import merge_topk
+
     qt = torch.from_numpy(q).to(BUILD_DEVICE)
+    qn = len(q)
     t = time.perf_counter()
-    best_v = torch.full((256, 10), float("-inf"), device=BUILD_DEVICE)
-    best_i = torch.zeros((256, 10), dtype=torch.int64, device=BUILD_DEVICE)
+    best_v = torch.full((qn, 10), float("-inf"), device=BUILD_DEVICE)
+    best_i = torch.zeros((qn, 10), dtype=torch.int64, device=BUILD_DEVICE)
     for c in range(reader.num_chunks):
         v, i = topk.streaming_topk(qt, reader.device_chunk(c), BUILD_CHUNK, 10, impl="cuda")
         best_v, best_i = merge_topk(torch.stack([best_v, v]),
                                     torch.stack([best_i, i.long() + c * BUILD_CHUNK]), 10)
     exact = best_i.cpu().numpy()
     _, got = idx.search(q, 10, nprobe=16)
-    recall = float(np.mean([len(set(got[r]) & set(exact[r])) / 10 for r in range(256)]))
-    res["recall_at_10_np16"] = recall
-    res["self_in_exact_top10"] = float(np.mean([own[r] in exact[r] for r in range(256)]))
-    res["exact_top10_seconds"] = time.perf_counter() - t
-    del idx
-    release()
-    if recall < BUILD_MIN_RECALL:
-        raise AssertionError(f"recall@10 {recall} < {BUILD_MIN_RECALL}")
-    return res
+    return {"recall_at_10_np16": float(np.mean([len(set(got[r]) & set(exact[r])) / 10
+                                                for r in range(qn)])),
+            "self_in_exact_top10": float(np.mean([own[r] in exact[r] for r in range(qn)])),
+            "exact_top10_seconds": time.perf_counter() - t}
 
 
 def artifact_bytes(d: Path) -> int:
@@ -1100,6 +1136,358 @@ def index_build_phase(seed: int, by_path: dict, out: Path):
     del trained
     release()
     return res, rows
+
+
+# -- the index build over a mesh: W ranks sharing the one card ----------------------------
+
+SBUILD_W = 4
+# the wall clock of one launch of ranks (train, fill, tune and search);
+# a hung rank fails the phase at this limit or at its group's 600 s
+SBUILD_LAUNCH_S = 600
+# recall@10 at nprobe 16 of the W-trained index (filled in one process)
+# may trail the one-process build's by this much
+SBUILD_MAX_RECALL_DROP = 0.01
+# a row assigned to another list by the W-rank fill must be a near-tie
+SBUILD_TIE = 1e-5
+
+
+def build_rank(spec: dict) -> int:
+    """One rank of phase sharded_build, started as users start the build
+    over a mesh: each command of ``spec["commands"]`` through ``cli.main``
+    with ``--coordinator 127.0.0.1:<port> --num-processes W --process-id R
+    --dist-backend B`` (a port per command), every launch count set to 0
+    just before the command and read just after; a search's printed hits
+    kept. Writes its numbers to ``spec["out"]`` after every command and
+    stops at the first that fails."""
+    import contextlib
+    import io
+
+    from abstracts_search_tpu_torch import cli
+
+    rank = spec["rank"]
+    logging.basicConfig(level=logging.INFO,
+                        format=f"%(asctime)s rank {rank} %(name)s %(levelname)s %(message)s")
+    os.environ.update(spec["env"])
+    res = {"rank": rank, "world": spec["world"], "backend": spec["backend"], "commands": []}
+    for argv, port in zip(spec["commands"], spec["ports"]):
+        full = ["--device", BUILD_DEVICE, "--coordinator", f"127.0.0.1:{port}",
+                "--num-processes", str(spec["world"]), "--process-id", str(rank),
+                "--dist-backend", spec["backend"], *argv]
+        out = io.StringIO()
+        reset_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(full)
+        torch.cuda.synchronize()
+        res["commands"].append({
+            "command": " ".join(argv[:4]), "rc": rc, "seconds": time.perf_counter() - t,
+            "launches": {k: v for k, v in counts().items() if v},
+            "stdout": out.getvalue() if argv[0] == "search" else ""})
+        Path(spec["out"]).write_text(json.dumps(res))
+        if rc != 0:
+            return 1
+    release()
+    return 0
+
+
+def launch_build_ranks(d: Path, world: int, backend: str, commands: list, env: dict) -> list:
+    """``world`` rank processes (``chip_smoke.py --build-rank``) running
+    ``commands`` in order under one wall-clock limit; every rank must
+    exit 0. A rank that exits non-zero stops the launch at once, and the
+    error carries each rank's last output. -> each rank's numbers."""
+    tag = f"{backend}_w{world}"
+    ports = [free_port() for _ in commands]
+    procs, logs, outs = [], [], []
+    deadline = time.monotonic() + SBUILD_LAUNCH_S
+
+    def tails(why: str):
+        text = "\n".join(f"--- rank {r} (exit {p.poll()}) ---\n{logs[r].read_text()[-3000:]}"
+                         for r, p in enumerate(procs))
+        return AssertionError(f"sharded_build {tag}: {why}\n{text}")
+
+    try:
+        for r in range(world):
+            outs.append(d / f"{tag}_rank{r}.json")
+            logs.append(d / f"{tag}_rank{r}.log")
+            spec = d / f"{tag}_rank{r}.spec.json"
+            spec.write_text(json.dumps({"rank": r, "world": world, "backend": backend,
+                                        "commands": commands, "ports": ports, "env": env,
+                                        "out": str(outs[r])}))
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--build-rank", str(spec)],
+                    stdout=log, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent))
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() for p in procs):
+                raise tails("a rank failed")
+            if time.monotonic() > deadline:
+                raise tails(f"the ranks outlived the launch's {SBUILD_LAUNCH_S} s")
+            time.sleep(0.5)
+        if any(p.returncode for p in procs):
+            raise tails("a rank failed")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [json.loads(o.read_text()) for o in outs]
+
+
+def lists_sha256(d: Path) -> dict:
+    import hashlib
+
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted((d / "lists").iterdir()) if not p.name.startswith(".")}
+
+
+def fill_diff(a: Path, b: Path, reader, idx) -> dict:
+    """Where two fills' lists differ: the positions filed under another
+    list, each with the two best scores of its assignment (kernel 1's
+    bf16 operands, scored in f64), and whether the two fills agree on
+    every list's rows. A list difference that is not a near-tie, or codes
+    that differ where the lists agree, is a fault."""
+    from abstracts_search_tpu_torch.index.lists import load_lists
+
+    def list_of(d):
+        csr = load_lists(d / "lists", mmap=True)
+        seg_list = np.repeat(np.arange(csr.n_lists), np.asarray(csr.seg_cnt))
+        seg_of_row = np.repeat(np.arange(csr.n_segs), np.asarray(csr.seg_valid))
+        valid = (np.arange(csr.seg_size)[None, :] < np.asarray(csr.seg_valid)[:, None])
+        rows = np.asarray(csr.row_ids).reshape(csr.n_segs, csr.seg_size)[valid]
+        out = np.full(csr.n_rows, -1, np.int64)
+        out[rows] = seg_list[seg_of_row]
+        return out
+
+    la, lb = list_of(a), list_of(b)
+    moved = np.flatnonzero(la != lb)
+    shown = []
+    for p in moved[:10]:
+        x = torch.from_numpy(reader.gather_rows(np.array([p]))).to(BUILD_DEVICE)
+        xr = (torch.nn.functional.normalize(x, dim=1) @ idx._rot).to(torch.bfloat16).double()
+        sc = (xr @ idx._cent_bf16[:N_LISTS].double().T)[0]
+        top = torch.topk(sc, 2)
+        shown.append({"position": int(p), "lists": [int(la[p]), int(lb[p])],
+                      "best_two_scores": top.values.tolist(),
+                      "gap": float(top.values[0] - top.values[1]),
+                      "scores_of_both": [float(sc[la[p]]), float(sc[lb[p]])]})
+    near = all(abs(r["scores_of_both"][0] - r["scores_of_both"][1]) <= SBUILD_TIE
+               for r in shown)
+    return {"positions_in_another_list": int(len(moved)), "shown": shown,
+            "all_shown_near_ties": near}
+
+
+def sharded_build_phase(seed: int, by_path: dict, root: Path, smi: str) -> dict:
+    """The index build over a mesh, as users run it, on the index_build
+    phase's virtual data dir and geometry (``root``: its ``data`` and its
+    one-process ``idx``): W = 4 gloo ranks sharing the card, then W = 1
+    under NCCL, each running ``astpu-torch index train`` (into a tree of
+    its own), ``index fill`` and ``index tune --force`` (on a copy of the
+    one-process empty artifact) and ``search``. Held against the
+    one-process build: the same k-means iterations and splits, centroids
+    the same bits on every rank, recall@10 at nprobe 16 of the W-trained
+    index (filled here in one process) within 0.01, the filled lists byte
+    for byte, the same tune oracle and nprobe, the same search answer."""
+    from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
+    from abstracts_search_tpu_torch.serve.engine import SearchEngine
+    from abstracts_search_tpu_torch.storage.virtual import VirtualShardReader
+
+    data, one = root / "data", root / "idx"
+    reader = VirtualShardReader(data, device=BUILD_DEVICE)
+    one_untuned = json.loads((one / "untuned.json").read_text())
+    one_params = json.loads((one / "params.json").read_text())
+    one_oracle = np.load(one / "tune_oracle.npz")
+    one_sha = lists_sha256(one / "index")
+    text = SERVE_TEXTS[0]
+    engine = SearchEngine.from_artifacts(_search_cfg(one), index_dir=one, embedder="hash",
+                                         hydrate=False, device=BUILD_DEVICE, warmup=False)
+    want = [{"id": r["id"], "score": r["score"]} for r in engine.search(text, k=10)]
+    q, own = perturbed_queries(reader, BUILD_FILL_ROWS, seed)
+    one_recall = perturbed_recall(engine.index, reader, q, own)
+    del engine
+    release()
+    res = {"label": f"W ranks sharing one {torch.cuda.get_device_name(0)}: no scaling "
+                    f"number", "nvidia_smi": smi,
+           "config": {"n_lists": N_LISTS, "dim": DIM, "pq": f"PQ{PQ_M}x{PQ_NBITS}",
+                      "seg_size": SEG, "train_rows": BUILD_TRAIN_ROWS,
+                      "fill_rows": BUILD_FILL_ROWS, "kmeans_iters": BUILD_KMEANS_ITERS},
+           "reduced": [f"fill {BUILD_FILL_ROWS} of {BUILD_FULL_ROWS} rows, as phase "
+                       "index_build", "W ranks share one card: NCCL runs at W = 1 only"],
+           "one_process": {"recall_at_10_np16": one_recall["recall_at_10_np16"],
+                           "kmeans_iters_run": one_untuned["kmeans"]["iters_run"],
+                           "kmeans_empty_splits": one_untuned["kmeans"]["empty_splits"]}}
+    one_c = np.load(one / "empty" / "centroids.npy")
+    for world, backend in ((SBUILD_W, "gloo"), (1, "nccl")):
+        tag = f"{backend}_w{world}"
+        d = root / f"mesh_{tag}"
+        trained, filled = d / "trained", d / "filled"
+        filled.mkdir(parents=True)
+        shutil.copytree(one / "empty", filled / "empty")
+        shutil.copy(one / "untuned.json", filled / "untuned.json")
+        commands = [
+            ["index", "-B", str(trained), "train", "-N", "-c", str(N_LISTS), "--pq-m",
+             str(PQ_M), "--pq-nbits", str(PQ_NBITS), "--sample", str(BUILD_TRAIN_ROWS),
+             "--iters", str(BUILD_KMEANS_ITERS), str(data)],
+            ["index", "-B", str(filled), "fill", str(data)],
+            ["index", "-B", str(filled), "tune", "--force", str(data)],
+            ["search", text, "-k", "10", "--embedder", "hash", "--no-hydrate"]]
+        t = time.perf_counter()
+        ranks = launch_build_ranks(d, world, backend, commands,
+                                   {"ASTPU_INDEX_DIR": str(filled), "ASTPU_EMBED_DIM": str(DIM),
+                                    "ASTPU_INDEX_STORAGE": "device"})
+        out = {"seconds": time.perf_counter() - t,
+               "commands": [{"command": c["command"],
+                             "seconds_by_rank": [r["commands"][i]["seconds"] for r in ranks],
+                             "launches_by_rank": [r["commands"][i]["launches"] for r in ranks]}
+                            for i, c in enumerate(ranks[0]["commands"])]}
+        launches = {k: sum(c["launches"].get(k, 0) for r in ranks for c in r["commands"])
+                    for k in ("topk", "adc_topk")}
+        path = "sharded_build" if backend == "gloo" else "sharded_build_nccl"
+        by_path[path] = {k: v for k, v in launches.items() if v}
+        if not all(launches.values()):
+            raise AssertionError(f"{tag}: kernels never launched: {launches}")
+        out["train"] = train_checks(trained, one, one_untuned, one_c, reader, q, own,
+                                    one_recall)
+        out["fill"] = fill_checks(filled, one, one_sha, reader, ranks)
+        out["tune"] = tune_checks(filled, one_params, one_oracle)
+        got = [json.loads(line) for line in ranks[0]["commands"][3]["stdout"].splitlines()
+               if line.startswith("{")]
+        got = [{"id": r["id"], "score": r["score"]} for r in got]
+        if got != want:
+            raise AssertionError(f"{tag}: search over the mesh {got} != one process's {want}")
+        out["search"] = {"text": text, "hits": len(got), "equal_to_one_process": True}
+        res[tag] = out
+        shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def _search_cfg(index_dir: Path):
+    from abstracts_search_tpu_torch.config import Config
+
+    return Config(index_dir=str(index_dir), embed_dim=DIM, index_storage="device")
+
+
+def trained_arrays_sha256(empty: Path) -> str:
+    """sha256 of an empty artifact's centroids, codebooks and rotation."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in ("centroids", "pq_centroids", "rotation"):
+        h.update(np.ascontiguousarray(np.load(empty / f"{name}.npy"), np.float32).tobytes())
+    return h.hexdigest()
+
+
+def train_checks(trained: Path, one: Path, one_untuned: dict, one_c, reader, q, own,
+                 one_recall: dict) -> dict:
+    """The W-rank train against the one-process train: iterations and
+    splits equal, the ranks' hashes equal, centroids' max |delta| and the
+    objective's relative delta; each rank's k-means seconds and kernel-1
+    launches; each step's reduction; recall of the W-trained index
+    filled here in one process (or, where its trained arrays are the
+    one-process build's bit for bit, that build's recall: the same
+    index)."""
+    from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
+
+    ts = json.loads((trained / "untuned.json").read_text())
+    km, one_km = ts["kmeans"], one_untuned["kmeans"]
+    hashes = [r["sha256"] for r in ts.get("ranks", [])]
+    c = np.load(trained / "empty" / "centroids.npy")
+    res = {"train_mode": ts["train_mode"], "kmeans_iters_run": km["iters_run"],
+           "kmeans_empty_splits": km["empty_splits"], "objective": km["objective"],
+           "objective_rel_delta": abs(km["objective"][-1] - one_km["objective"][-1])
+           / abs(one_km["objective"][-1]),
+           "centroids_max_abs_delta": float(np.abs(c - one_c).max()),
+           "centroids_bit_equal_to_one_process": bool(np.array_equal(c, one_c)),
+           "trained_sha256_by_rank": hashes,
+           "kmeans_by_rank": [{"rank": r["rank"], **{
+               k: v for s in r["stages"] if s["stage"] == "kmeans"
+               for k, v in (("seconds", s["seconds"]),
+                            ("kernel_1_launches", s.get("launches", {}).get("topk", 0)))}}
+               for r in ts["ranks"]],
+           "stages_rank0": ts["stages"],
+           "reduce_s_per_step": km["reduce_s"], "reduce_bytes_per_step": km["reduce_bytes"]}
+    if km["iters_run"] != one_km["iters_run"] or km["empty_splits"] != one_km["empty_splits"]:
+        raise AssertionError(f"W-rank k-means: {km['iters_run']} iterations, splits "
+                             f"{km['empty_splits']}; one process: {one_km['iters_run']}, "
+                             f"{one_km['empty_splits']}")
+    if len(set(hashes)) != 1:
+        raise AssertionError(f"the ranks trained different arrays: {hashes}")
+    res["trained_arrays_equal_to_one_process"] = (
+        trained_arrays_sha256(trained / "empty") == trained_arrays_sha256(one / "empty"))
+    if res["trained_arrays_equal_to_one_process"]:
+        rec = one_recall
+        res["recall_by"] = "identity: the one-process build's trained arrays, bit for bit"
+    else:
+        idx = IVFPQIndex.load(trained / "empty", device=BUILD_DEVICE)
+        t = time.perf_counter()
+        idx.fill_stream(((x, np.arange(i * BUILD_CHUNK, i * BUILD_CHUNK + len(x)))
+                         for i, (_, x) in enumerate(reader.iter_row_groups(with_ids=False))),
+                        lists_dir=trained / "index" / "lists")
+        res["one_process_fill_seconds"] = time.perf_counter() - t
+        rec = perturbed_recall(idx, reader, q, own)
+        res["recall_by"] = "measured: the W-trained index filled in one process"
+        del idx
+        release()
+    res["recall_at_10_np16"] = rec["recall_at_10_np16"]
+    res["recall_drop"] = one_recall["recall_at_10_np16"] - rec["recall_at_10_np16"]
+    if res["recall_drop"] > SBUILD_MAX_RECALL_DROP:
+        raise AssertionError(f"the W-trained index recalls {rec['recall_at_10_np16']}, one "
+                             f"process's {one_recall['recall_at_10_np16']}")
+    return res
+
+
+def fill_checks(filled: Path, one: Path, one_sha: dict, reader, ranks) -> dict:
+    """The W-rank fill of the one-process empty artifact against the
+    one-process fill: the lists' files' sha256 equal (else the rows filed
+    under another list, each a near-tie or a fault), the breadcrumbs'
+    rows summing to the fill's, each rank's encode, spill, pack, barrier
+    and install seconds."""
+    from abstracts_search_tpu_torch.index.ivfpq import IVFPQIndex
+
+    rep = json.loads((filled / "fill_report.json").read_text())
+    owners = sorted((filled / "index" / "lists").glob(".owner_p*.json"))
+    rows = [json.loads(o.read_text())["rows"] for o in owners]
+    by_rank = []
+    for r in rep["ranks"]:
+        st = {s["stage"]: s for s in r["stages"]}["fill_stream"]
+        fs = st["fill_stats"]
+        by_rank.append({"rank": r["rank"], "seconds": st["seconds"],
+                        "kernel_1_launches": st.get("launches", {}).get("topk", 0),
+                        **{k: fs.get(k) for k in ("rank_rows", "rank_chunks", "encode_s",
+                                                  "download_s", "spill_s", "pack_s",
+                                                  "barrier_s", "install_s", "rows_per_s")}})
+    sha = lists_sha256(filled / "index")
+    res = {"lists_sha256_equal": sha == one_sha, "rows_by_rank": rows,
+           "rows_per_s": by_rank[0]["rows_per_s"], "by_rank": by_rank}
+    if sum(rows) != BUILD_FILL_ROWS or len(rows) != len(ranks):
+        raise AssertionError(f"the breadcrumbs hold {rows} rows; the fill {BUILD_FILL_ROWS}")
+    if sha != one_sha:
+        idx = IVFPQIndex.load(one / "empty", device=BUILD_DEVICE)
+        res["diff"] = fill_diff(filled / "index", one / "index", reader, idx)
+        del idx
+        raise AssertionError(f"the W-rank fill's lists differ from one process's: {res}")
+    return res
+
+
+def tune_checks(filled: Path, one_params: dict, one_oracle) -> dict:
+    """The W-rank tune against the one-process tune: the oracle cache's
+    queries and positions byte for byte, the recall of every operating
+    point, the chosen nprobe; each rank's oracle and sweep seconds and
+    launches."""
+    params = json.loads((filled / "params.json").read_text())
+    z = np.load(filled / "tune_oracle.npz")
+    rep = json.loads((filled / "tune_report.json").read_text())
+    rec = [p["recall"] for p in params["operating_points"]]
+    one_rec = [p["recall"] for p in one_params["operating_points"]]
+    res = {"oracle_equal": all(z[k].tobytes() == one_oracle[k].tobytes()
+                               for k in ("queries", "ref")),
+           "chosen_nprobe": params["nprobe"], "one_process_nprobe": one_params["nprobe"],
+           "recalls": rec, "one_process_recalls": one_rec,
+           "by_rank": [{"rank": r["rank"], "stages": {
+               s["stage"]: {"seconds": s["seconds"], "launches": s.get("launches", {})}
+               for s in r["stages"]}} for r in rep["ranks"]]}
+    if not res["oracle_equal"] or rec != one_rec or params["nprobe"] != one_params["nprobe"]:
+        raise AssertionError(f"the W-rank tune differs from one process's: {res}")
+    return res
 
 
 # -- ingest: the driver's target_build on the card --------------------------------------
@@ -2564,11 +2952,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-rows", type=int, default=206_962_688)
     ap.add_argument("--phases",
-                    default="device,build,kernels,flat,index_build,ivf_flat,ingest,index,"
-                            "serve,stages_batch256,encoder,hybrid,host,sharded,legacy",
+                    default="device,build,kernels,flat,index_build,sharded_build,ivf_flat,"
+                            "ingest,index,serve,stages_batch256,encoder,hybrid,host,sharded,"
+                            "legacy",
                     help="comma-separated subset, for development runs")
-    # one rank of phase sharded (started by the phase itself)
+    # one rank of phase sharded or sharded_build (started by the phase itself)
     ap.add_argument("--sharded-rank", metavar="SPEC_JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--build-rank", metavar="SPEC_JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2577,6 +2967,8 @@ def main() -> int:
         return 2
     if args.sharded_rank:
         return sharded_rank(json.loads(Path(args.sharded_rank).read_text()))
+    if args.build_rank:
+        return build_rank(json.loads(Path(args.build_rank).read_text()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -2636,11 +3028,15 @@ def main() -> int:
         build_dir = build_root / "smoke_build"
         try:
             res, build_rows = index_build_phase(args.seed, by_path, build_dir)
+            for key, sub in build_rows.items():
+                extra_rows[key].update(sub)
+            emit({"phase": "index_build", **res, "seconds": time.perf_counter() - t})
+            if "sharded_build" in phases:
+                t = time.perf_counter()
+                res = sharded_build_phase(args.seed, by_path, build_dir, smi)
+                emit({"phase": "sharded_build", **res, "seconds": time.perf_counter() - t})
         finally:
             shutil.rmtree(build_dir, ignore_errors=True)
-        for key, sub in build_rows.items():
-            extra_rows[key].update(sub)
-        emit({"phase": "index_build", **res, "seconds": time.perf_counter() - t})
 
     if "ivf_flat" in phases:
         t = time.perf_counter()

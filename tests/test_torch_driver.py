@@ -14,7 +14,7 @@ CPU (``--device cpu``), mirroring ``tests/test_pipeline_e2e.py``.
   where the JAX copy admits: a crash inside ``_IdsWriter.commit`` leaves
   a tombstone that ``IdMap`` refuses; ``target_compact`` checks the
   filled index's ``meta.json``.
-- The CLI: ``--coordinator`` is refused, entry points default to the
+- The CLI: ``clean`` refuses ``--coordinator``, entry points default to the
   card, ``index clean`` needs no device, ``index resegment`` rewrites
   lists byte-equal to the JAX package's.
 - The watchdog: beats on INFO records without changing what handlers

@@ -15,7 +15,7 @@ mesh (``build_mesh(jax.devices()[:W])``). Held here:
   one process (no group): positions and scores equal, in device, host
   and hybrid storage; a rank holding no list (3 lists over 4 ranks);
 - the mesh's refusals: nccl on the CPU or with more ranks than cards,
-  a second sharded ``FlatIndex.add``, a build op over several ranks.
+  a second sharded ``FlatIndex.add``.
 """
 
 import json
@@ -348,16 +348,15 @@ def test_nccl_is_refused_up_front(monkeypatch):
         init_distributed("127.0.0.1:1", 2, 2, device="cpu")
 
 
-def test_sharded_indexes_serve_only(world):
+def test_sharded_flat_index_keeps_its_block_and_device(world):
+    """A sharded FlatIndex keeps its rank's block of one add, refuses a
+    second, and refuses a device other than its mesh's. (The build over
+    a mesh: tests/test_torch_build_mesh.py.)"""
     mesh = Mesh(1, 2, torch.device("cpu"), group=object(), backend="gloo")
     flat = FlatIndex(chunk=CHUNK, mesh=mesh)
     flat.add(world["x"][:300])
     assert flat._lo == 256 and flat._rows == 44
     with pytest.raises(ValueError, match="one add"):
         flat.add(world["x"][:10])
-    with pytest.raises(NotImplementedError, match="over a mesh of 2 ranks"):
-        IVFPQIndex(8, DIM, pq_m=8, mesh=mesh).train(world["x"])
-    with pytest.raises(NotImplementedError, match="over a mesh of 2 ranks"):
-        IVFFlatIndex(8, mesh=mesh).train(world["x"])
     with pytest.raises(ValueError, match="not the mesh's"):
         FlatIndex(device="cuda:1", mesh=Mesh(0, 2, torch.device("cuda", 0)))

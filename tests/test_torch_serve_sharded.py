@@ -15,7 +15,8 @@ sub-index (2 lists) whose ids supersede base works, ``ids.parquet`` and
 - a killed follower fails rank 0 (its next request answers 500 and the
   process exits non-zero), and a killed rank 0 fails the follower, each
   within a minute (the collective timeout is 600 s);
-- the build commands refuse the mesh before any rank joins.
+- the commands without a path over a mesh refuse it before any rank
+  joins.
 
 POST does not hydrate, so no request leaves the machine.
 """
@@ -240,14 +241,18 @@ def test_a_killed_rank_0_fails_the_follower(ranks):
     assert ranks.wait(1, FAIL_S) != 0
 
 
-@pytest.mark.parametrize("argv", [["all"], ["index", "train"], ["sync"], ["build", "db"],
-                                  ["dump", "a", "b"]])
+@pytest.mark.parametrize("argv", [["index", "clean"], ["index", "compact"], ["recover"],
+                                  ["build", "db"], ["clean"], ["init", "db"],
+                                  ["index", "resegment", "--seg-size", "8"]])
 def test_build_commands_refuse_the_mesh(argv, capsys):
+    """The commands without a path over a mesh refuse it before any rank
+    joins (index train|fill|tune, dump, sync and all run over it:
+    tests/test_torch_build_mesh.py)."""
     rc = cli.main(["--device", "cpu", "--coordinator", "127.0.0.1:1", "--num-processes", "2",
                    "--process-id", "0", *argv])
     assert rc == 1
     err = capsys.readouterr().err
-    assert "runs in one process" in err and "slice 8" in err
+    assert "runs in one process" in err and "ROADMAP.md" in err
 
 
 def test_mesh_flags_need_a_coordinator(capsys):
