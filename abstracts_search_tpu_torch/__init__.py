@@ -15,7 +15,11 @@ here today:
   per-query merge -> host-side position resolution -> ids / HTTP; the
   same path corpus-sharded over a ``torch.distributed`` mesh (one rank per
   card or process, each holding the lists ``l % W == r``, merged by one
-  all-gather; HTTP on rank 0, the other ranks following its searches);
+  all-gather; HTTP on rank 0, the other ranks following its searches),
+  and the stella encoder at dp x tp over a 2-D ``(shard, tp)`` mesh (rows
+  over ``shard``, each rank its tp slices of the weights, the partial
+  sums all-reduced in its tp group; rank 0 tokenizes and broadcasts the
+  token ids);
 - flat search: ``FlatIndex`` (exact streaming top-k), and the fast-mode
   top-k that ``bench.py``'s configuration runs;
 - the index build: ``IVFPQIndex.train`` (OPQ, spherical k-means with the
@@ -29,8 +33,9 @@ here today:
                  packing, the IVF-PQ index (search and build), k-means,
                  PQ, OPQ and the flat index.
 - ``parallel`` — the corpus mesh (``torch.distributed``: ranks, the
-                 collectives, row and list sharding) and the top-k merge
-                 over corpus parts, across ranks by one all-gather.
+                 collectives, row and list sharding; a 2-D mesh with a
+                 ``tp`` axis), the top-k merge over corpus parts, across
+                 ranks by one all-gather, and the encoder's TP rules.
 - ``models`` — the stella encoder (Qwen2 backbone, pooling, MRL head),
                its embedding pipeline, weight loading (safetensors, HF
                snapshots, the JAX package's parameters) and the

@@ -27,7 +27,12 @@ runs the same targets, as every JAX process does). Over a mesh:
 
 - ``build``: rank 0 writes the manifest; each rank ingests the
   partitions ``i % W == rank`` (every rank embeds on its own card) into
-  its own store ``data.sqlite.p<rank>``;
+  its own store ``data.sqlite.p<rank>``. On a 2-D mesh (``tp > 1``)
+  the partitions are owned per shard, ``i % n_shard == shard``: the tp
+  ranks of a shard run one encoder over their tp group
+  (``get_embedder(mesh=mesh.tp_view())``), making the same embedder calls
+  in the same order, and tp rank 0 alone writes ``data.sqlite.p<shard>``
+  and the partition stamps;
 - ``dump``: rank 0 folds the per-rank stores into the main store and
   dumps; the others wait;
 - ``train``, ``fill``, ``tune``: every rank runs them over the mesh
@@ -38,7 +43,13 @@ runs the same targets, as every JAX process does). Over a mesh:
   and rank 0 reads the id column of every row group for ``ids.parquet``;
 - an incremental fill runs a full fill (the delta streams from one
   store);
-- each target ends at a barrier, so every rank sees its files.
+- each target ends at a barrier, so every rank sees its files;
+- on a 2-D mesh the index stages (train, fill, tune and the tune
+  oracle) run over the ``shard`` axis alone, on the ranks of tp index 0
+  (a ``Driver`` over ``mesh.shard_view()``: the index is replicated over
+  ``tp``, so one rank builds each shard, as every write has one writer);
+  the other tp ranks wait at the target's barrier and return rank 0's
+  result.
 
 Two deliberate differences from the JAX copy: ``_IdsWriter.commit``
 leaves a tombstone meta before its first rename, so a half-committed
@@ -72,7 +83,7 @@ from .ingest.manifest import default_fetcher, parse_manifest, update_manifest_fi
 from .ingest.sync import SyncState, sync
 from .models.registry import get_embedder
 from .ops import launch_counts
-from .parallel.mesh import Mesh, deal, gather_objects, index_mesh, process_barrier
+from .parallel.mesh import Mesh, deal, gather_objects, process_barrier, rank_mesh
 from .storage.shards import DUMP_META, dump_store_to_shards, load_shards_to_store
 from .storage.sqlite_store import EmbeddingStore, init_store
 from .storage.virtual import SPEC_NAME, generator_tag, open_data_source
@@ -113,7 +124,7 @@ class Driver:
         self.cfg = cfg
         self.root = Path(root)
         self.fetcher = fetcher
-        self.mesh = index_mesh(mesh, device)
+        self.mesh = rank_mesh(mesh, device)
         self.device = self.mesh.device
         self.rank0 = self.mesh.rank == 0
         self._embedder_name = embedder if isinstance(embedder, str) else None
@@ -142,14 +153,31 @@ class Driver:
 
     @property
     def embedder(self):
+        """The ingest's embedder: at tp 1 a whole one on this rank's device
+        (every rank embeds its own partitions), at tp > 1 this rank's part
+        of its shard's encoder (None on a tp rank other than 0 for the hash
+        embedder, which its tp rank 0 runs alone)."""
         if self._embedder is None:
-            # no mesh: over one, every rank of a build embeds its own
-            # partitions (only the serve path keeps the encoder on rank 0)
-            self._embedder = get_embedder(self._embedder_name, self.cfg, device=self.device)
+            self._embedder = get_embedder(
+                self._embedder_name, self.cfg, device=self.device,
+                mesh=self.mesh.tp_view() if self.mesh.tp > 1 else None)
         return self._embedder
 
     def _barrier(self) -> None:
         process_barrier(self.mesh)
+
+    def _on_shard_axis(self, target: str, **kw):
+        """An index stage on a 2-D mesh (module docstring): ``target`` run
+        by a Driver over the shard axis on the ranks of tp index 0, then a
+        barrier of every rank -> rank 0's result on every rank."""
+        out = None
+        if self.mesh.tp_rank == 0:
+            sub = Driver(self.cfg, root=self.root, fetcher=self.fetcher,
+                         embedder=self._embedder or self._embedder_name,
+                         mesh=self.mesh.shard_view())
+            out = getattr(sub, target)(**kw)
+        self._barrier()
+        return gather_objects(self.mesh, out)[0]
 
     def _rank_report(self, report: dict, path: Path | None = None, **mine) -> dict:
         """``report`` with every rank's ``mine`` under ``ranks`` over a
@@ -191,8 +219,8 @@ class Driver:
     def target_build(self) -> dict:
         """Manifest fetch + incremental partition ingest into the store.
         ``build_stats`` then holds each ingested partition's rows,
-        ``embed_s`` and ``stall_s``. Over a mesh each rank ingests its
-        own partitions into its own store."""
+        ``embed_s`` and ``stall_s``. Over a mesh each rank (each shard
+        at tp > 1) ingests its own partitions into its own store."""
         urls = parse_manifest(self.fetcher(self.cfg.manifest_url))
         if self.rank0:
             changed = update_manifest_file(self.manifest_path, urls)
@@ -204,20 +232,27 @@ class Driver:
         if self.mesh.size == 1:
             store = self._store(create=True)
         else:
-            p = self.store_path.with_name(f"{self.store_path.name}.p{self.mesh.rank}")
-            store = init_store(p) if not p.exists() else EmbeddingStore(p)
-            owner = (self.mesh.rank, self.mesh.size)
+            # one store per shard, written by its tp rank 0 (at tp 1: per rank)
+            p = self.store_path.with_name(f"{self.store_path.name}.p{self.mesh.shard_rank}")
+            store = None
+            if self.mesh.tp_rank == 0:
+                store = init_store(p) if not p.exists() else EmbeddingStore(p)
+            owner = (self.mesh.shard_rank, self.mesh.n_shard)
         # one revision per sync run: rows this run upserts are "since the
         # last fill" for the incremental-fill watermark (a part store's
         # revision bounds what the dump's merge moves)
-        store.bump_rev()
+        if store is not None:
+            store.bump_rev()
         self.build_stats = {}
         try:
-            out = sync(urls, state, self.embedder, store, batch_size=self.cfg.embed_batch,
-                       buffer_bytes=self.cfg.ingest_buffer_bytes, owner=owner,
-                       stats=self.build_stats)
+            out = {}
+            if store is not None or self.embedder is not None:
+                out = sync(urls, state, self.embedder, store, batch_size=self.cfg.embed_batch,
+                           buffer_bytes=self.cfg.ingest_buffer_bytes, owner=owner,
+                           stats=self.build_stats)
         finally:
-            store.close()
+            if store is not None:
+                store.close()
         self._barrier()
         return out
 
@@ -318,6 +353,8 @@ class Driver:
 
     def target_train(self, *, force: bool = False, kmeans_iters: int = 10) -> bool:
         """Order-only semantics: retrain only when artifacts are absent."""
+        if self.mesh.tp > 1:
+            return self._on_shard_axis("target_train", force=force, kmeans_iters=kmeans_iters)
         if self.empty_dir.is_dir() and self.untuned_path.exists() and not force:
             logger.info("train: artifacts present, skipping (order-only dep)")
             return False
@@ -437,6 +474,9 @@ class Driver:
 
     def target_fill(self, *, force: bool = False, kmeans_iters: int = 10,
                     incremental: bool = False) -> bool:
+        if self.mesh.tp > 1:
+            return self._on_shard_axis("target_fill", force=force, kmeans_iters=kmeans_iters,
+                                       incremental=incremental)
         self.target_train(kmeans_iters=kmeans_iters)
         fp = self._data_fingerprint()
         stamp = self._read_fill_stamp()
@@ -594,6 +634,8 @@ class Driver:
         """Compute and persist the exact tune oracle if the cache misses,
         before the filled index is installed: streaming the corpus needs
         workspace that the installed lists would share."""
+        if self.mesh.tp > 1:
+            return self._on_shard_axis("_ensure_tune_oracle", n_queries=n_queries, k=k)
         n_queries = self.TUNE_QUERIES if n_queries is None else n_queries
         k = self.TUNE_K if k is None else k
         kw = self._tune_oracle_kw(n_queries, k)
@@ -602,6 +644,9 @@ class Driver:
 
     def target_tune(self, *, force: bool = False, n_queries: int | None = None,
                     k: int | None = None, target_recall: float = 0.95) -> bool:
+        if self.mesh.tp > 1:
+            return self._on_shard_axis("target_tune", force=force, n_queries=n_queries, k=k,
+                                       target_recall=target_recall)
         n_queries = self.TUNE_QUERIES if n_queries is None else n_queries
         k = self.TUNE_K if k is None else k
         self.target_train()

@@ -91,7 +91,9 @@ def ingest_partition(
     buffer_bytes: int = 256 << 20,
     stats: dict | None = None,
 ) -> int:
-    """Stream one partition's part files end to end. Returns rows upserted.
+    """Stream one partition's part files end to end. Returns rows upserted
+    (embedded, with ``store`` None: a tp rank that runs its shard's encoder
+    beside the rank that writes).
 
     ``stats``, when given, receives the overlap accounting this function
     logs (``rows``, ``embed_s``, ``stall_s``) — benchmarks assert the
@@ -165,7 +167,8 @@ def ingest_partition(
         t0 = time.perf_counter()
         embs = embedder(docs)
         t_embed += time.perf_counter() - t0
-        store.upsert(ids, embs)
+        if store is not None:
+            store.upsert(ids, embs)
         n += len(ids)
     logger.info(
         "partition ingest: %d rows, embed %.1fs, input-stall %.1fs "
@@ -196,9 +199,14 @@ def sync(
     ``owner=(process_id, process_count)``: multi-host builds split the
     manifest by PARTITION ownership — process p ingests partitions where
     ``i % count == p`` into its own store/stamp set (stores merge at
-    dump). None = own everything (one process, as the port runs until
-    its multi-GPU slice). ``stats``, when given, receives each ingested
-    partition's ``ingest_partition`` stats under its name.
+    dump; on a 2-D mesh ``p`` is the shard and its tp ranks all run this
+    with the same arguments, making the same embedder calls in the same
+    order). None = own everything (one process). ``store`` None: embed
+    only, neither upsert nor stamp (a tp rank other than 0; its tp rank 0
+    writes, and stamps a partition only after every batch of it went
+    through the shard's encoder, so this rank has taken its pending set
+    by then). ``stats``, when given, receives each ingested partition's
+    ``ingest_partition`` stats under its name.
     """
     groups = group_by_partition(manifest_urls)
     todo = state.pending(groups.keys())
@@ -218,5 +226,6 @@ def sync(
             buffer_bytes=buffer_bytes,
             stats=None if stats is None else stats.setdefault(part, {}),
         )
-        state.mark_done(part)
+        if store is not None:
+            state.mark_done(part)
     return results

@@ -46,9 +46,15 @@ def save_file(path: str | Path, tensors: dict, metadata: dict | None = None) -> 
             f.write(memoryview(t.detach().contiguous().cpu().view(torch.uint8).numpy()))
 
 
-def load_file(path: str | Path) -> dict:
+def load_file(path: str | Path, select=None) -> dict:
     """One safetensors file -> name -> CPU tensor. The tensors are views
-    of a copy-on-write map of the file, paged in as they are read."""
+    of a copy-on-write map of the file, paged in as they are read.
+
+    ``select(name, shape) -> (dim, lo, hi) | None`` restores one slice of
+    a tensor: ``[lo, hi)`` along ``dim`` 0 is a view of just those rows'
+    bytes; along ``dim`` 1 a strided view, whose reads touch only the
+    pages that hold the slice's columns. None keeps the whole tensor (the
+    counterpart of the JAX package's orbax restore at TP shardings)."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
@@ -63,10 +69,17 @@ def load_file(path: str | Path) -> dict:
                              f"not one of {sorted(_DTYPES)}")
         dtype = _DTYPES[info["dtype"]]
         lo, hi = info["data_offsets"]
+        shape = list(info["shape"])
+        part = select(name, tuple(shape)) if select is not None else None
+        if part is not None and part[0] == 0:
+            row = (hi - lo) // max(shape[0], 1)
+            lo, hi = lo + part[1] * row, lo + part[2] * row
+            shape[0] = part[2] - part[1]
+            part = None
         count = (hi - lo) // dtype.itemsize
         t = (torch.frombuffer(buf, dtype=dtype, count=count, offset=base + lo) if count
-             else torch.empty(0, dtype=dtype))
-        out[name] = t.reshape(info["shape"])
+             else torch.empty(0, dtype=dtype)).reshape(shape)
+        out[name] = t if part is None else t.narrow(part[0], part[1], part[2] - part[1])
     return out
 
 

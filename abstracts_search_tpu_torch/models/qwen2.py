@@ -27,6 +27,17 @@ Attention is written as plain matmuls, as the JAX package's is a stock
 einsum outside any kernel; a fused attention kernel would not round the
 scores to ``dtype`` before the softmax. No code here touches TF32: the
 port pins it off, so an f32 encoder runs in true f32.
+
+Tensor parallelism (``tp=``, a mesh of the tp ranks of one shard,
+``Mesh.tp_view()``): each rank builds and runs only its query heads, the
+KV heads they read and its intermediate columns (``parallel/sharding.py``
+``tp_layout``), and the partial outputs of ``o_proj`` and ``down_proj``
+are summed over the tp group by one all-reduce each, 2 per layer. Neither
+projection has a bias, so nothing is added tp times. The partials are
+summed in f32 and cast to ``dtype`` once (in bf16 the sum of two rounded
+partials rounded again would add a rounding). RMSNorm, rotary tables and
+the token embedding are replicated. At tp 1 no collective runs and the
+ops are those of one process.
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.mesh import Mesh, all_reduce
+from ..parallel.sharding import TPLayout, tp_layout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,20 +121,34 @@ def _linear(n_in: int, n_out: int, bias: bool, cfg: Qwen2Config, device) -> nn.L
     return nn.Linear(n_in, n_out, bias=bias, dtype=cfg.dtype, device=device)
 
 
+def _tp_sum(tp: Mesh | None, partial):
+    """The sum of a row-split projection's partials over the tp group,
+    taken in f32 and cast back once; at tp 1 the output as it is."""
+    if tp is None:
+        return partial
+    return all_reduce(tp, partial.float()).to(partial.dtype)
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: Qwen2Config, device):
+    """This rank's query heads and the KV heads they read (all of them at
+    tp 1)."""
+
+    def __init__(self, cfg: Qwen2Config, device, layout: TPLayout, tp: Mesh | None = None):
         super().__init__()
         self.cfg = cfg
-        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        self.q_proj = _linear(cfg.hidden_size, h * hd, True, cfg, device)
-        self.k_proj = _linear(cfg.hidden_size, kv * hd, True, cfg, device)
-        self.v_proj = _linear(cfg.hidden_size, kv * hd, True, cfg, device)
-        self.o_proj = _linear(h * hd, cfg.hidden_size, False, cfg, device)
+        self.tp = tp
+        self.h = layout.q_heads[1] - layout.q_heads[0]
+        self.kv = layout.kv_heads[1] - layout.kv_heads[0]
+        hd = cfg.head_dim
+        self.q_proj = _linear(cfg.hidden_size, self.h * hd, True, cfg, device)
+        self.k_proj = _linear(cfg.hidden_size, self.kv * hd, True, cfg, device)
+        self.v_proj = _linear(cfg.hidden_size, self.kv * hd, True, cfg, device)
+        self.o_proj = _linear(self.h * hd, cfg.hidden_size, False, cfg, device)
 
     def forward(self, x, mask_bias, cos, sin):
         cfg = self.cfg
         b, t, _ = x.shape
-        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        h, kv, hd = self.h, self.kv, cfg.head_dim
         q = _apply_rope(self.q_proj(x).view(b, t, h, hd), cos, sin)
         k = _apply_rope(self.k_proj(x).view(b, t, kv, hd), cos, sin)
         v = self.v_proj(x).view(b, t, kv, hd)
@@ -136,28 +163,33 @@ class Attention(nn.Module):
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
 
         out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(b, t, h * hd)
-        return self.o_proj(out)
+        return _tp_sum(self.tp, self.o_proj(out))
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: Qwen2Config, device):
+    """This rank's intermediate columns (all of them at tp 1)."""
+
+    def __init__(self, cfg: Qwen2Config, device, layout: TPLayout, tp: Mesh | None = None):
         super().__init__()
-        self.gate_proj = _linear(cfg.hidden_size, cfg.intermediate_size, False, cfg, device)
-        self.up_proj = _linear(cfg.hidden_size, cfg.intermediate_size, False, cfg, device)
-        self.down_proj = _linear(cfg.intermediate_size, cfg.hidden_size, False, cfg, device)
+        self.tp = tp
+        inter = layout.inter[1] - layout.inter[0]
+        self.gate_proj = _linear(cfg.hidden_size, inter, False, cfg, device)
+        self.up_proj = _linear(cfg.hidden_size, inter, False, cfg, device)
+        self.down_proj = _linear(inter, cfg.hidden_size, False, cfg, device)
 
     def forward(self, x):
-        return self.down_proj(nn.functional.silu(self.gate_proj(x)) * self.up_proj(x))
+        return _tp_sum(self.tp, self.down_proj(nn.functional.silu(self.gate_proj(x))
+                                               * self.up_proj(x)))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: Qwen2Config, device):
+    def __init__(self, cfg: Qwen2Config, device, layout: TPLayout, tp: Mesh | None = None):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, device)
-        self.self_attn = Attention(cfg, device)
+        self.self_attn = Attention(cfg, device, layout, tp)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                                 cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, device, layout, tp)
 
     def forward(self, x, mask_bias, cos, sin):
         x = x + self.self_attn(self.input_layernorm(x), mask_bias, cos, sin)
@@ -185,19 +217,26 @@ class Qwen2Encoder(nn.Module):
     """Token ids -> final hidden states [B, T, hidden] in ``cfg.dtype``.
 
     Built on ``device`` (the card by default) with uninitialised weights:
-    ``load_state_dict`` or ``init_random_`` fills them."""
+    ``load_state_dict`` or ``init_random_`` fills them. ``tp``: the tp
+    ranks of this rank's shard (``Mesh.tp_view()``); with more than one,
+    the layers hold this rank's slices (``parallel/sharding.py``) and every
+    rank of the group runs each forward with the same inputs."""
 
-    def __init__(self, cfg: Qwen2Config, causal: bool = True, *, device=None):
+    def __init__(self, cfg: Qwen2Config, causal: bool = True, *, device=None,
+                 tp: Mesh | None = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.causal = causal
+        tp = tp if tp is not None and tp.size > 1 else None
+        self.layout = tp_layout(cfg, *((tp.size, tp.rank) if tp is not None else ()))
         # built on the meta device, then given memory: no default init of
         # 1.5B weights that a load overwrites anyway
         meta = torch.device("meta")
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype,
                                          device=meta)
-        self.layers = nn.ModuleList(Block(cfg, meta) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Block(cfg, meta, self.layout, tp)
+                                    for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, meta)
         self.to_empty(device=device)
 

@@ -398,15 +398,22 @@ def convert_and_save(cfg: Config, ckpt_dir, *, verify: bool = False) -> dict | N
 
 class StellaEmbedder:
     """Full stella pipeline: tokenize + the port's forward on ``device``
-    (the card by default).
+    (the card by default), or this rank's part of it over ``mesh``.
 
     Weights come from the port's checkpoint when ``cfg.ckpt_dir`` holds
-    one (no conversion at load), else from the HF snapshot directly."""
+    one (no conversion at load), else from the HF snapshot directly. Over
+    a mesh with a group (``EmbeddingPipeline(mesh=)``: rows over
+    ``shard``, weights over ``tp``) each rank reads only its tp slices of
+    the checkpoint (``checkpoint.load_file(select=)``), and ``collective``
+    is True: every rank of the mesh runs each forward."""
 
-    def __init__(self, cfg: Config, device=None):
+    def __init__(self, cfg: Config, device=None, mesh=None):
         from . import embed
         from .checkpoint import load_file
 
+        mesh = mesh if mesh is not None and mesh.collective else None
+        if mesh is not None:
+            device = mesh.device
         ckpt = Path(cfg.ckpt_dir) if cfg.ckpt_dir else None
         if ckpt is not None and (ckpt / ENCODER_META).is_file():
             weights = ckpt / ENCODER_WEIGHTS
@@ -417,19 +424,30 @@ class StellaEmbedder:
                     f"write it with the port's convert_and_save")
             device = resolve_device(device)
             scfg = _stella_config_from_json(json.loads((ckpt / ENCODER_META).read_text()))
-            params = load_file(weights)
-            logger.info("stella weights loaded from %s", weights)
+            select = None
+            if mesh is not None and mesh.tp > 1:
+                from ..parallel.sharding import param_slice, tp_layout
+
+                layout = tp_layout(scfg, mesh.tp, mesh.tp_rank)
+                select = lambda name, shape: param_slice(name, scfg, layout)  # noqa: E731
+            params = load_file(weights, select=select)
+            logger.info("stella weights loaded from %s%s", weights,
+                        f" (tp slice {mesh.tp_rank} of {mesh.tp})" if select else "")
         else:
             scfg, params = _convert_from_torch(cfg)
             device = resolve_device(device)
         self.pipeline = embed.EmbeddingPipeline(
             scfg, params, embed.load_hf_tokenizer(cfg.model_name),
-            batch_size=cfg.embed_batch, device=device,
+            batch_size=cfg.embed_batch, device=device, mesh=mesh,
             # pow-2 batch buckets: a single interactive query encodes as
             # a 1-row forward instead of a full embed_batch-row one
             batch_buckets=True,
         )
         self.dim = cfg.embed_dim
+
+    @property
+    def collective(self) -> bool:
+        return self.pipeline.mesh is not None
 
     def __call__(self, texts) -> np.ndarray:
         return self.pipeline(texts)
@@ -438,22 +456,49 @@ class StellaEmbedder:
         return self.pipeline.embed_queries(texts)
 
 
+def _agree(mesh, choice: str, error: BaseException | None) -> None:
+    """Every rank's embedder choice (or load error), gathered before the
+    encoder's first collective: a failed load, or ranks that chose
+    differently, raise on every rank instead of waiting out a timeout."""
+    from ..parallel.mesh import gather_objects
+
+    ranks = gather_objects(mesh, repr(error) if error is not None else choice)
+    if error is not None:
+        raise error
+    if len(set(ranks)) > 1:
+        raise RuntimeError(f"the ranks' embedders differ or failed to load: {ranks}")
+
+
 def get_embedder(name: str, cfg: Config, device=None, mesh=None):
     """The query encoder ``name`` ("hash", "stella" or "auto") on
-    ``device``. Over a mesh with a process group only rank 0 encodes
-    (the whole encoder, on its card) and broadcasts the query vectors:
-    the other ranks get None. The build passes no mesh (``Driver``):
-    every rank embeds its own partitions on its own card."""
-    if mesh is not None and mesh.collective and mesh.rank != 0:
-        return None
-    if name == "hash":
-        return HashEmbedder(cfg.embed_dim)
-    if name == "stella":
-        return StellaEmbedder(cfg, device=device)
-    if name == "auto":
+    ``device``, or this rank's part of it over a mesh with a group.
+
+    - ``stella`` over such a mesh: every rank gets its part of the
+      encoder (``StellaEmbedder(mesh=)``), tp 1 included; the ranks'
+      loads are checked to have all succeeded before any forward.
+    - ``hash`` over such a mesh: rank 0 alone encodes (the other ranks
+      get None), and the engine broadcasts the query vectors.
+    - ``auto``: stella, or the hash embedder with a warning when the
+      weights are missing; over a mesh every rank must make the same
+      choice (checked; a split choice raises)."""
+    if name not in ("hash", "stella", "auto"):
+        raise ValueError(f"unknown embedder {name!r}")
+    collective = mesh is not None and mesh.collective
+    emb = error = None
+    if name != "hash":
         try:
-            return StellaEmbedder(cfg, device=device)
+            emb = StellaEmbedder(cfg, device=device, mesh=mesh)
         except (MRLHeadNotFound, FileNotFoundError) as e:   # the weights are missing
-            logger.warning("stella unavailable (%s); falling back to hash embedder", e)
-            return HashEmbedder(cfg.embed_dim)
-    raise ValueError(f"unknown embedder {name!r}")
+            if name == "stella":
+                error = e
+            else:
+                logger.warning("stella unavailable (%s); falling back to hash embedder", e)
+        except Exception as e:  # noqa: BLE001 — raised below, on every rank of a mesh
+            error = e
+        if collective:
+            _agree(mesh, "stella" if emb is not None else "hash", error)
+        elif error is not None:
+            raise error
+    if emb is not None:
+        return emb
+    return None if collective and mesh.rank != 0 else HashEmbedder(cfg.embed_dim)

@@ -64,13 +64,15 @@ class StellaEncoder(nn.Module):
 
     Parameters: ``backbone.*`` (a ``Qwen2Encoder``) and
     ``vector_linear.{weight,bias}``, uninitialised until
-    ``load_state_dict`` or ``init_random_``."""
+    ``load_state_dict`` or ``init_random_``. ``tp``: the backbone's tp
+    group (``Qwen2Encoder``); pooling and ``vector_linear`` are replicated
+    on every rank of it."""
 
-    def __init__(self, cfg: StellaConfig, *, device=None):
+    def __init__(self, cfg: StellaConfig, *, device=None, tp=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.backbone = Qwen2Encoder(cfg.backbone, causal=cfg.causal, device=device)
+        self.backbone = Qwen2Encoder(cfg.backbone, causal=cfg.causal, device=device, tp=tp)
         self.vector_linear = nn.Linear(cfg.backbone.hidden_size, cfg.mrl_dim, bias=True,
                                        dtype=cfg.backbone.dtype, device="meta")
         self.vector_linear.to_empty(device=device)

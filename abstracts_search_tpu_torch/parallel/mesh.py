@@ -18,6 +18,19 @@ A ``Mesh`` is a small value: ``rank``, ``size``, ``device``, ``group``.
 no group, and every index then takes its single-card path: no collective
 runs. ``init_distributed`` joins a group first.
 
+Two axes, as the JAX package's ``(shard, tp)`` mesh. ``build_mesh(tp=)``
+places rank ``r`` of ``W`` at shard ``r // tp`` and tp index ``r % tp``
+(JAX's ``reshape(W // tp, tp)``: the tp ranks of a shard are
+consecutive). The encoder runs its batch rows over ``shard`` and its
+weights over ``tp`` (``models/``, ``parallel/sharding.py``): its
+all-reduces run in ``tp_group`` (this rank's shard), its all-gather of
+rows in ``shard_group`` (the ranks of this tp index, one per shard).
+The search structures use ``shard`` only and are replicated over ``tp``:
+every index takes ``shard_view()`` (``index_mesh``), a mesh of
+``n_shard`` ranks over ``shard_group``, so the tp ranks of a shard hold
+the same lists and run the same searches. At ``tp = 1`` both views are
+the mesh itself.
+
 Backends. ``nccl`` (the default for a CUDA device) runs one rank per card
 with its collectives on the card; ``gloo`` (the default on the CPU) is a
 host transport, and the backend for ranks that share one card, which
@@ -55,11 +68,42 @@ class Mesh:
     group: object | None = None      # the process group; None: no collective runs
     backend: str | None = None
     timeout_s: float = DEFAULT_TIMEOUT_S
+    tp: int = 1                      # the tp axis' extent; size // tp shards
+    tp_group: object | None = None   # this rank's shard (its tp ranks); None at tp 1
+    shard_group: object | None = None  # this tp index's ranks, one per shard (tp > 1)
 
     @property
     def collective(self) -> bool:
         """Whether searches merge across ranks (any group, W = 1 included)."""
         return self.group is not None
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
+
+    @property
+    def shard_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def n_shard(self) -> int:
+        return self.size // self.tp
+
+    def shard_view(self) -> "Mesh":
+        """The ``shard`` axis alone: ``n_shard`` ranks over ``shard_group``,
+        this rank at ``shard_rank`` (the mesh itself at tp 1)."""
+        if self.tp == 1:
+            return self
+        return Mesh(self.shard_rank, self.n_shard, self.device, self.shard_group,
+                    self.backend, self.timeout_s)
+
+    def tp_view(self) -> "Mesh":
+        """The ``tp`` axis alone: this rank's shard as a mesh of one shard
+        of ``tp`` ranks over ``tp_group`` (``W = 1`` with no group at tp 1)."""
+        if self.tp == 1:
+            return Mesh(0, 1, self.device, timeout_s=self.timeout_s)
+        return Mesh(self.tp_rank, self.tp, self.device, self.tp_group, self.backend,
+                    self.timeout_s, tp=self.tp, tp_group=self.tp_group)
 
     def owned(self, n_lists: int) -> np.ndarray:
         """[n_lists] bool: the lists this rank owns (``l % size == rank``)."""
@@ -94,7 +138,7 @@ def _ranks_on_this_host(world: int, coordinator: str | None) -> int | None:
 
 def init_distributed(coordinator: str | None = None, num_processes: int | None = None,
                      process_id: int | None = None, backend: str | None = None, *,
-                     device=None, timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
+                     device=None, timeout_s: float = DEFAULT_TIMEOUT_S, tp: int = 1) -> Mesh:
     """Join the process group and return this rank's ``Mesh``.
 
     ``coordinator`` is ``HOST:PORT`` of rank 0's rendezvous
@@ -104,7 +148,9 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
     ``nccl`` for a CUDA device and ``gloo`` for the CPU. ``nccl`` with more
     ranks on this host than cards is refused here, before any rank
     blocks: ranks that share a card take ``gloo``. The rank's card is
-    made current before any CUDA op."""
+    made current before any CUDA op. ``tp``: the tp axis' extent
+    (``build_mesh``); a ``W`` it does not divide is refused before the
+    group forms."""
     if coordinator is None:
         init_method = "env://"
         world = int(num_processes or os.environ["WORLD_SIZE"])
@@ -119,6 +165,7 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
         init_method, world, rank = f"tcp://{coordinator}", int(num_processes), int(process_id)
     if not 0 <= rank < world:
         raise ValueError(f"process id {rank} outside [0, {world})")
+    _check_tp(world, tp)
     dev = _rank_device(device, rank)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if backend not in BACKENDS:
@@ -136,23 +183,40 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
-    return build_mesh(dev, timeout_s=timeout_s)
+    return build_mesh(dev, timeout_s=timeout_s, tp=tp)
 
 
-def build_mesh(device=None, *, timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
-    """The mesh of this process: the initialized default group's ranks,
-    or ``W = 1`` with no group (no collective runs)."""
-    if dist.is_available() and dist.is_initialized():
-        rank = dist.get_rank()
-        return Mesh(rank, dist.get_world_size(), resolve_device(_rank_device(device, rank)),
-                    dist.group.WORLD, dist.get_backend(), timeout_s)
-    return Mesh(0, 1, resolve_device(device), timeout_s=timeout_s)
+def _check_tp(world: int, tp: int) -> None:
+    if isinstance(tp, bool) or not isinstance(tp, int) or tp < 1 or world % tp:
+        raise ValueError(f"{world} rank(s) not divisible by tp={tp!r}")
 
 
-def index_mesh(mesh: Mesh | None, device=None) -> Mesh:
-    """An index's mesh: ``mesh`` (the index lives on its device; a
-    ``device`` naming another is refused), or ``W = 1`` with no group on
-    ``device``."""
+def build_mesh(device=None, *, timeout_s: float = DEFAULT_TIMEOUT_S, tp: int = 1) -> Mesh:
+    """The mesh of this process: the initialized default group's ranks
+    as ``W // tp`` shards of ``tp`` ranks (module docstring), or ``W = 1``
+    with no group (no collective runs). At ``tp > 1`` every rank must
+    call this, with the same ``tp``: each makes every tp and shard group,
+    in the same order (``dist.new_group`` is collective over the world)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        _check_tp(1, tp)
+        return Mesh(0, 1, resolve_device(device), timeout_s=timeout_s)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    _check_tp(world, tp)
+    dev = resolve_device(_rank_device(device, rank))
+    if tp == 1:
+        return Mesh(rank, world, dev, dist.group.WORLD, dist.get_backend(), timeout_s)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    tp_groups = [dist.new_group(list(range(s * tp, (s + 1) * tp)), timeout=timeout)
+                 for s in range(world // tp)]
+    shard_groups = [dist.new_group(list(range(j, world, tp)), timeout=timeout)
+                    for j in range(tp)]
+    return Mesh(rank, world, dev, dist.group.WORLD, dist.get_backend(), timeout_s, tp=tp,
+                tp_group=tp_groups[rank // tp], shard_group=shard_groups[rank % tp])
+
+
+def rank_mesh(mesh: Mesh | None, device=None) -> Mesh:
+    """``mesh`` (whose device a ``device`` naming another may not
+    contradict), or ``W = 1`` with no group on ``device``."""
     if mesh is None:
         return Mesh(0, 1, resolve_device(device))
     if device is not None:
@@ -160,6 +224,12 @@ def index_mesh(mesh: Mesh | None, device=None) -> Mesh:
         if d.type != mesh.device.type or (d.index is not None and d != mesh.device):
             raise ValueError(f"device {d} is not the mesh's {mesh.device}")
     return mesh
+
+
+def index_mesh(mesh: Mesh | None, device=None) -> Mesh:
+    """An index's mesh: the ``shard`` axis of ``mesh`` (``rank_mesh``;
+    the index lives on the mesh's device, replicated over ``tp``)."""
+    return rank_mesh(mesh, device).shard_view()
 
 
 def shutdown_distributed(mesh: Mesh) -> None:
@@ -190,12 +260,23 @@ def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
 
 
 def broadcast(mesh: Mesh, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Rank ``src``'s ``t`` on every rank (a copy on ``t``'s device; the
-    other ranks pass a tensor of the same shape and dtype)."""
+    """The mesh's rank ``src``'s ``t`` on every rank (a copy on ``t``'s
+    device; the other ranks pass a tensor of the same shape and dtype)."""
     if not mesh.collective:
         return t
     buf = t.contiguous().to(_stage_device(mesh), copy=True)
-    dist.broadcast(buf, src, group=mesh.group)
+    dist.broadcast(buf, dist.get_global_rank(mesh.group, src), group=mesh.group)
+    return buf.to(t.device)
+
+
+def all_reduce(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """The sum over the mesh's ranks of ``t`` (equal shapes and dtypes),
+    on ``t``'s device: one ring all-reduce, which hands every rank the
+    same bits (``t`` itself may be overwritten). Without a group: ``t``."""
+    if not mesh.collective:
+        return t
+    buf = t.contiguous().to(_stage_device(mesh))
+    dist.all_reduce(buf, group=mesh.group)
     return buf.to(t.device)
 
 

@@ -8,14 +8,21 @@ positions -> ids, merged newest-wins over the deltas -> optional live
 OpenAlex hydration.
 
 Over a mesh (``from_artifacts(mesh=)``, ``parallel/mesh.py``) each rank
-holds its own lists of the base index and of every delta; rank 0 alone
-encodes, resolves ids and hydrates. Each search is one collective
-section: rank 0 broadcasts a header (op, Q, k, nprobe, D, sources) and
-the query vectors, then every rank runs the same ``search`` calls in the
-same order, base first, then each delta. The other ranks run ``follow()``
-until rank 0 broadcasts the stop op. One lock serializes the sections,
-so concurrent callers (the batcher's workers, HTTP threads) never
-interleave collectives; encoding, id resolution and hydration stay
+holds its own lists of the base index and of every delta (its shard's,
+replicated over the tp ranks of a 2-D mesh); rank 0 alone resolves ids
+and hydrates. Each search is one collective section: rank 0 broadcasts a
+header (op, Q, k, nprobe, D, sources) and the query vectors, then every
+rank runs the same ``search`` calls in the same order, base first, then
+each delta. With the hash embedder rank 0 alone encodes; with stella
+over the mesh (``StellaEmbedder.collective``: rows over ``shard``,
+weights over ``tp``) each encode is a section of its own before the
+search: rank 0 tokenizes and broadcasts the header and each batch's
+token ids and mask (never the texts: the whitespace tokenizer's ``hash``
+differs between processes), then every rank runs the forward and holds
+the vectors. The other ranks run ``follow()`` until rank 0 broadcasts the
+stop op. One lock serializes the sections, so concurrent callers (the
+batcher's workers, HTTP threads) never interleave collectives, and an
+encode and a search never interleave; id resolution and hydration stay
 concurrent. A request is checked on rank 0 before its header goes out,
 so a malformed one is refused there (``ValueError``) and no rank sees
 it. A failed collective (a lost rank, a timeout) marks the engine failed
@@ -43,8 +50,9 @@ from .hydrate import OpenAlexClient
 
 logger = logging.getLogger(__name__)
 
-# the ops of a collective section's header, [op, Q, k, nprobe, D, sources]
-OP_SEARCH, OP_PING, OP_STOP = 1, 2, 3
+# the ops of a collective section's header: [op, Q, k, nprobe, D, sources]
+# for a search, [op, batches, 0, 0, mrl_dim, 0] for an encode
+OP_SEARCH, OP_PING, OP_STOP, OP_ENCODE = 1, 2, 3, 4
 # the largest k a search over a mesh takes (the HTTP API's cap)
 MAX_K = 100
 
@@ -135,9 +143,10 @@ class SearchEngine:
         (``get_embedder``) on the index's ``device``. Needs pyarrow.
 
         Over ``mesh`` (every rank calls this) each index loads this rank's
-        lists; the id maps, the encoder and hydration live on rank 0,
-        whose warm-up is the first collective section (the other ranks
-        take it in ``follow()``)."""
+        lists; the id maps and hydration live on rank 0, the encoder too
+        unless it is stella (every rank's part of it); rank 0's warm-up is
+        the first collective section (the other ranks take it in
+        ``follow()``)."""
         import pyarrow.parquet as pq
 
         from ..storage.idmap import IdMap
@@ -212,11 +221,11 @@ class SearchEngine:
         """Run the single-query path once at startup (allocator and
         cuBLAS set-up). Logs and continues on failure, as the JAX engine
         does; kernel faults surface earlier, at ``IVFPQIndex.load``. Over
-        a mesh the warm-up is a collective section, and a failed one
+        a mesh the warm-up runs the collective sections, and a failed one
         raises: the ranks are out of step."""
         t0 = time.perf_counter()
         try:
-            self._search_ids(self.embedder.queries(["warmup"]), k)
+            self._search_ids(self.encode_queries(["warmup"]), k)
             logger.info("warmup: %.2fs", time.perf_counter() - t0)
         except Exception:  # noqa: BLE001 — warmup must never kill startup
             if self._collective:
@@ -229,21 +238,30 @@ class SearchEngine:
     def _collective(self) -> bool:
         return self.mesh is not None and self.mesh.collective
 
+    @property
+    def _collective_encoder(self) -> bool:
+        return self._collective and getattr(self.embedder, "collective", False)
+
     def _source_ks(self, n_sources: int, k: int) -> list[int]:
         """The k of each source: every source whose hits a NEWER delta can
         mask is overfetched so the post-mask pool stays >= k; the newest
         source needs none."""
         return [k + self.DELTA_OVERFETCH] * (n_sources - 1) + [k]
 
-    def _check_request(self, q, k: int):
-        """-> ``q`` as C-contiguous f32 [Q, D]; a malformed request raises
-        ``ValueError`` here, before any collective. Only a collective
-        engine caps k (at ``MAX_K``): one process serves any k, as the
-        JAX engine does (its HTTP handler caps k itself)."""
+    def _check_k(self, k) -> None:
+        """A malformed k raises ``ValueError`` (before any collective, and
+        before a query is encoded). Only a collective engine caps k (at
+        ``MAX_K``): one process serves any k, as the JAX engine does (its
+        HTTP handler caps k itself)."""
         if isinstance(k, bool) or not isinstance(k, (int, np.integer)) or k < 1:
             raise ValueError(f"k={k!r}: an integer >= 1")
         if self._collective and k > MAX_K:
             raise ValueError(f"k={k!r}: an engine over a mesh takes k in [1, {MAX_K}]")
+
+    def _check_request(self, q, k: int):
+        """-> ``q`` as C-contiguous f32 [Q, D]; a malformed request raises
+        ``ValueError`` here, before any collective (``_check_k``)."""
+        self._check_k(k)
         q = np.ascontiguousarray(q, np.float32)
         if q.ndim != 2 or q.shape[0] < 1 or q.shape[1] != self.index.dim:
             raise ValueError(f"query vectors {q.shape}: need [Q >= 1, {self.index.dim}]")
@@ -258,23 +276,18 @@ class SearchEngine:
         return [idx.search(q, min(ks, idx.n) if idx.n else 1, nprobe=nprobe)
                 for idx, ks in zip(srcs, self._source_ks(len(srcs), k))]
 
-    def _lead(self, op: int, srcs=(), q=None, k: int = 0):
-        """Rank 0: one collective section (header, then for a search the
-        query vectors and the search of each of ``srcs``). -> their hits."""
+    def _lead(self, head: list, body=None):
+        """Rank 0: one collective section: the header, then ``body()``
+        (the section's broadcasts and collective work) -> its result."""
         with self._lead_lock:
             if self.failed is not None:
                 raise RuntimeError(f"a rank of the mesh failed: {self.failed}")
             if self._stopped:
                 raise RuntimeError("the mesh's followers are stopped")
             try:
-                qn = 0 if q is None else len(q)
-                head = torch.tensor([op, qn, k, self.nprobe, self.index.dim, len(srcs)])
-                broadcast(self.mesh, head)
-                self._stopped = op == OP_STOP
-                if op != OP_SEARCH:
-                    return None
-                broadcast(self.mesh, torch.from_numpy(q))
-                return self._search_sources(srcs, q, k, self.nprobe)
+                broadcast(self.mesh, torch.tensor(head, dtype=torch.int64))
+                self._stopped = head[0] == OP_STOP
+                return None if body is None else body()
             except Exception as e:
                 self.failed = e
                 logger.error("collective section failed: %s", e)
@@ -284,12 +297,51 @@ class SearchEngine:
             finally:
                 self._last_section = time.monotonic()
 
+    def _lead_search(self, srcs, q, k: int):
+        """Rank 0: a search section (the query vectors, then the search of
+        each of ``srcs``) -> their hits."""
+        def body():
+            broadcast(self.mesh, torch.from_numpy(q))
+            return self._search_sources(srcs, q, k, self.nprobe)
+
+        return self._lead([OP_SEARCH, len(q), k, self.nprobe, self.index.dim, len(srcs)], body)
+
+    def _encode_batches(self, pipe, n: int, plan=None) -> list:
+        """Every rank of an encode section of ``n`` batches: their shapes,
+        then each one's token ids and mask, from rank 0 (``plan``'s; the
+        followers pass None), run through this rank's part of the
+        encoder -> each batch's [bs, mrl_dim] vectors."""
+        shapes = (torch.tensor([ids.shape for _, ids, _ in plan], dtype=torch.int64)
+                  if plan is not None else torch.zeros((n, 2), dtype=torch.int64))
+        out = []
+        for i, (bs, t) in enumerate(broadcast(self.mesh, shapes).tolist()):
+            both = (torch.from_numpy(np.stack(plan[i][1:])) if plan is not None
+                    else torch.zeros((2, bs, t), dtype=torch.int64))
+            both = broadcast(self.mesh, both).numpy()
+            out.append(pipe.forward(both[0], both[1]))
+        return out
+
+    def _lead_encode(self, texts) -> np.ndarray:
+        """Rank 0: an encode section over the mesh -> [n, mrl_dim] f32."""
+        pipe = self.embedder.pipeline
+        if not isinstance(texts, (list, tuple)) or not all(isinstance(t, str) for t in texts):
+            raise ValueError("queries: a list of strings")
+        out = np.zeros((len(texts), pipe.cfg.mrl_dim), np.float32)
+        if not texts:
+            return out
+        plan = pipe.plan(texts, "s2p_query")
+        embs = self._lead([OP_ENCODE, len(plan), 0, 0, pipe.cfg.mrl_dim, 0],
+                          lambda: self._encode_batches(pipe, len(plan), plan))
+        for (rows, _, _), e in zip(plan, embs):
+            out[rows] = e[: len(rows)]
+        return out
+
     def follow(self) -> None:
         """A follower rank's loop (ranks other than 0): take each
-        collective section's header from rank 0 and run the same searches
-        in the same order, until rank 0's stop op. A failed collective,
-        or a header whose dimension or source count differs from this
-        rank's, raises."""
+        collective section's header from rank 0 and run the same work in
+        the same order (searches, or this rank's part of an encode), until
+        rank 0's stop op. A failed collective, or a header whose dimension
+        or source count differs from this rank's, raises."""
         d = self.index.dim
         srcs = [self.index] + [dd[0] for dd in self._delta_state[0]]
         while True:
@@ -303,13 +355,18 @@ class SearchEngine:
                                        f"this rank {len(srcs)} of dimension {d}")
                 q = broadcast(self.mesh, torch.empty((qn, d), dtype=torch.float32)).numpy()
                 self._search_sources(srcs, q, k, nprobe)
+            elif op == OP_ENCODE:
+                if not self._collective_encoder or self.embedder.pipeline.cfg.mrl_dim != hd:
+                    raise RuntimeError(f"rank 0 encodes over the mesh to dimension {hd}; this "
+                                       f"rank holds no part of that encoder")
+                self._encode_batches(self.embedder.pipeline, qn)
 
     def stop_followers(self) -> None:
         """Rank 0: end the followers' loops (once; nothing to do without
         a group or after a failure)."""
         if not self._collective or self.failed is not None or self._stopped:
             return
-        self._lead(OP_STOP)
+        self._lead([OP_STOP, 0, 0, 0, 0, 0])
 
     def keep_followers_alive(self, stop: threading.Event, interval_s: float) -> None:
         """Rank 0, on a thread: a ping section whenever none ran for
@@ -319,7 +376,7 @@ class SearchEngine:
             if time.monotonic() - self._last_section < interval_s:
                 continue
             try:
-                self._lead(OP_PING)
+                self._lead([OP_PING, 0, 0, 0, 0, 0])
             except Exception:  # noqa: BLE001 — recorded in self.failed; on_failure ran
                 return
 
@@ -353,7 +410,7 @@ class SearchEngine:
         sources = [(self.index, self.ids)] + [(d[0], d[1]) for d in deltas]
         kk = self._source_ks(len(sources), k)
         if self._collective:
-            hits = self._lead(OP_SEARCH, [idx for idx, _ in sources], q, k)
+            hits = self._lead_search([idx for idx, _ in sources], q, k)
             per_source = [self._named_rows(ids, *h) for (_, ids), h in zip(sources, hits)]
         elif len(sources) == 1:
             per_source = [self._search_one_source(self.index, self.ids, q, kk[0])]
@@ -392,16 +449,21 @@ class SearchEngine:
                 r.update(meta.get(r["id"], {}))
 
     def search(self, query: str, k: int = 10) -> list[dict]:
-        q = self.embedder.queries([query])
+        self._check_k(k)
+        q = self.encode_queries([query])
         results = [{"id": n, "score": s} for s, n in self._search_ids(q, k)[0]]
         self.hydrate_rows([results])
         return results
 
     def search_batch(self, queries: list[str], k: int = 10) -> list[list[dict]]:
+        self._check_k(k)
         return self.search_batch_encoded(self.encode_queries(queries), k)
 
     def encode_queries(self, queries: list[str]):
-        """Encoder-only half of the batched path."""
+        """Encoder-only half of the batched path: an encode section over
+        the mesh when the encoder spans it, else rank 0's own."""
+        if self._collective_encoder:
+            return self._lead_encode(queries)
         return self.embedder.queries(queries)
 
     def search_batch_encoded(self, q, k: int = 10) -> list[list[dict]]:

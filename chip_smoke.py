@@ -88,7 +88,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
           and recall@10 against an exact f32 top-10 (fails below 0.9);
           prints QPS, p50 and kernel 1's f32 FMA probe beside its bound.
   ingest  Driver.target_build on the card: a file:// manifest over 4
-          updated_date= partitions of 512 seeded OpenAlex-shaped works
+          updated_date= partitions of 256 seeded OpenAlex-shaped works
           (abstracts of 100-300 words as abstract_inverted_index; ~10%
           filtered out: no abstract, or another language), the native
           filter built into build/native/, the full-width stella encoder
@@ -156,6 +156,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
           a 120 s collective timeout; a rank that fails fails the phase
           with every rank's last output. QPS and p50 are labelled as W
           ranks sharing one card: no scaling number.
+  sharded_encoder
+          phase encoder's full-width checkpoint (28 layers, hidden 1536,
+          12/2 heads, FFN 8960, MRL 1024, seeded random weights) served
+          over 2-D meshes from phase sharded's directory (the same
+          artifact, ids.parquet, params.json at nprobe 16): rank processes
+          (this script with --encoder-rank) each run init_distributed(tp=),
+          SearchEngine.from_artifacts(embedder="stella", mesh=): its lists
+          and its tp slices of the checkpoint, and run_server: rank 0
+          tokenizes each request (a crc32 word tokenizer in the HF
+          tokenizer's place) and broadcasts the token ids, every rank runs
+          its part of the forward, then the search. (W, tp) = (2, 2),
+          (4, 2) and (4, 4) under gloo, all sharing the card, and (1, 1)
+          under NCCL, each held against phase encoder's one process (the
+          reference, made there on the loaded index and encoders, the same
+          tokenizer). Traffic: the 256 serve texts typed in one POST and
+          50 single GETs (20 under gloo). Checks:
+          each rank's weights are its slices of the checkpoint (sha256 of
+          the slices the layout gives) and hold 1/tp of the layer bytes
+          (KV heads replicated at tp 4) beside the replicated embedding
+          and head; each tp index's shards hold the artifact's codes;
+          kernels 1 and 3 launched on every rank; f32 query vectors within
+          1e-4 of one process's (bit for bit under NCCL), bf16 (64
+          texts) within 0.02, cosines printed; served ids equal one process's but for
+          counted near-ties (scores within 5e-4; none under NCCL). At
+          (2 x 2) then Driver.target_build over the mesh (a store per
+          shard, written by its tp rank 0) of 4 x 128 seeded works, cut
+          from phase ingest's: its dump equal to one process's in ids and
+          within 1e-4 in vectors, a second build upserting 0. Prints each
+          rank's GiB of weights and codes, load seconds, forward ms at
+          batch 1 and 256 (f32 at 32 under gloo), the all-reduces of a
+          forward and their ms, HTTP QPS and p50, rank 0's encode and
+          search sections as the traffic ran them, beside the card's name
+          and power limit: W ranks share one card, no scaling number.
   legacy  after the transposed index is freed and deleted: the same
           geometry written row-major (legacy format<=2 layout, raw scan
           kernel for packed rows) and served with the same checks, then a
@@ -164,7 +197,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 Each path (flat, index_build, sharded_build, sharded_build_nccl,
 ivf_flat, ingest, serve, encoder, hybrid, host, sharded, sharded_flat,
-sharded_nccl, legacy, legacy_pq8, host_pq8) runs with every launch count
+sharded_nccl, sharded_encoder_one, sharded_encoder, sharded_encoder_nccl,
+legacy, legacy_pq8, host_pq8) runs with every launch count
 set to 0 just before it and read just after (in each rank process for the
 sharded paths, per command, summed over the ranks and commands), and
 fails if one of its kernels never launched. Then a ``{"kernels": [...]}`` line with one row per TPU
@@ -1494,7 +1528,7 @@ def tune_checks(filled: Path, one_params: dict, one_oracle) -> dict:
 
 # 4 partitions of 1,024 works took the phase 124-128 s with the f32
 # encoder, past its 120 s: halved
-INGEST_PARTITIONS, INGEST_WORKS, INGEST_WORKS_FULL = 4, 512, 1024
+INGEST_PARTITIONS, INGEST_WORKS, INGEST_WORKS_FULL = 4, 256, 1024
 # about 10% of the works are filtered out: 5% carry no abstract, 5% are
 # in another language
 INGEST_DROP_NO_ABSTRACT, INGEST_DROP_LANGUAGE = 0.05, 0.05
@@ -1504,10 +1538,11 @@ INGEST_CHECK_ROWS = 32
 INGEST_ATOL = 1e-5
 
 
-def openalex_work(rng, i: int, date: str, vocab: list) -> dict:
+def openalex_work(rng, i: int, date: str, vocab: list, words=INGEST_WORDS) -> dict:
     """One OpenAlex-shaped work: an id, a title, a language and the
-    abstract as ``abstract_inverted_index`` (word -> positions)."""
-    n = int(rng.integers(INGEST_WORDS[0], INGEST_WORDS[1] + 1))
+    abstract of ``words`` (min, max) words as ``abstract_inverted_index``
+    (word -> positions)."""
+    n = int(rng.integers(words[0], words[1] + 1))
     words = [vocab[j] for j in rng.integers(0, len(vocab), n)]
     inv: dict = {}
     for pos, w in enumerate(words):
@@ -1519,7 +1554,8 @@ def openalex_work(rng, i: int, date: str, vocab: list) -> dict:
             "abstract_inverted_index": None if rng.random() < INGEST_DROP_NO_ABSTRACT else inv}
 
 
-def write_snapshot(root: Path, seed: int) -> tuple[str, list]:
+def write_snapshot(root: Path, seed: int, works: int = INGEST_WORKS,
+                   words=INGEST_WORDS) -> tuple[str, list]:
     """Gzipped part files under ``root/snapshot/updated_date=<d>/`` and a
     ``file://`` manifest over them. -> (manifest URL, the part paths)."""
     import gzip
@@ -1532,8 +1568,8 @@ def write_snapshot(root: Path, seed: int) -> tuple[str, list]:
         pdir = root / "snapshot" / f"updated_date={date}"
         pdir.mkdir(parents=True, exist_ok=True)
         part = pdir / "part_000.gz"
-        lines = "\n".join(json.dumps(openalex_work(rng, i, date, vocab))
-                          for i in range(INGEST_WORKS)) + "\n"
+        lines = "\n".join(json.dumps(openalex_work(rng, i, date, vocab, words))
+                          for i in range(works)) + "\n"
         part.write_bytes(gzip.compress(lines.encode()))
         entries.append({"url": part.as_uri()})
         parts.append(part)
@@ -1564,7 +1600,8 @@ def ingest_phase(seed: int, by_path: dict, out: Path) -> dict:
     res = {"partitions": INGEST_PARTITIONS, "works": INGEST_PARTITIONS * INGEST_WORKS,
            "words_per_abstract": list(INGEST_WORDS),
            "reduced": [f"{INGEST_WORKS} of {INGEST_WORKS_FULL} works per partition: the "
-                       f"f32 encoder took the phase past 120 s"]}
+                       f"f32 encoder took the phase past 120 s at 1,024, and 60 s at 512 of "
+                       f"the smoke's 1,200"]}
     t = time.perf_counter()
     binary = oa_filter.ensure_filter_built()
     res["native_filter"] = {"binary": str(binary.relative_to(Path(__file__).resolve().parent)),
@@ -2448,31 +2485,34 @@ def rank0_split(engine, reps: int = 5) -> dict:
             "engine_single_ms": median_ms(lambda: engine.search_batch_encoded(q[:1], 10))}
 
 
-def sharded_traffic(http: int, reps: int = 5) -> dict:
+def sharded_traffic(http: int, reps: int = 5, warm: bool = True,
+                    singles: int = SHARDED_SINGLES) -> dict:
     """Through rank 0's HTTP port: the 256 serve texts in one POST (a
-    warm one, then ``reps`` timed), then SHARDED_SINGLES GET /search, one
-    at a time (host clock)."""
+    warm one unless ``warm`` is False, then ``reps`` timed), then
+    ``singles`` GET /search of the first texts, one at a time (host
+    clock)."""
     url = f"http://127.0.0.1:{http}"
     req = lambda: urllib.request.Request(  # noqa: E731
         f"{url}/search", data=json.dumps({"queries": SERVE_TEXTS, "k": 10}).encode(),
         headers={"Content-Type": "application/json"})
     batch_s = []
-    for _ in range(reps + 1):
+    for _ in range(reps + warm):
         t = time.perf_counter()
         with urllib.request.urlopen(req(), timeout=120) as r:
             batch = json.loads(r.read())["results"]
         batch_s.append(time.perf_counter() - t)
-    singles, single_s = [], []
-    for text in SERVE_TEXTS[:SHARDED_SINGLES]:
+    batch_s = batch_s[int(warm):]
+    single_rows, single_s = [], []
+    for text in SERVE_TEXTS[:singles]:
         t = time.perf_counter()
         with urllib.request.urlopen(f"{url}/search?q={urllib.parse.quote(text)}&k=10",
                                     timeout=60) as r:
-            singles.append(json.loads(r.read())["results"])
+            single_rows.append(json.loads(r.read())["results"])
         single_s.append(time.perf_counter() - t)
-    return {"batch": batch, "singles": singles,
-            "qps_batch256": 256 / statistics.median(batch_s[1:]),
-            "batch256_ms_median": statistics.median(batch_s[1:]) * 1e3,
-            "batch256_ms_all": [x * 1e3 for x in batch_s[1:]],
+    return {"batch": batch, "singles": single_rows,
+            "qps_batch256": 256 / statistics.median(batch_s),
+            "batch256_ms_median": statistics.median(batch_s) * 1e3,
+            "batch256_ms_all": [x * 1e3 for x in batch_s],
             "single_query_p50_ms": statistics.median(single_s) * 1e3}
 
 
@@ -2502,16 +2542,21 @@ def hold_http_against_kept(rows: list, kv: np.ndarray, kp: np.ndarray) -> dict:
             "queries_reordered_among_equal_scores": reordered}
 
 
-def launch_ranks(d: Path, world: int, backend: str, seed: int, *, flat: bool) -> tuple:
-    """``world`` rank processes (``chip_smoke.py --sharded-rank``) on the
-    card, under one wall-clock limit; rank 0's traffic once it serves;
-    SIGTERM to rank 0, then every rank must exit 0. A rank that exits
-    early, or a launch past its limit, fails with each rank's last
-    output. -> (each rank's numbers, the traffic's)."""
+def launch_ranks(d: Path, world: int, backend: str, seed: int, *, flat: bool = False,
+                 flag: str = "--sharded-rank", tag: str | None = None, extra=None,
+                 reps: int = 5, warm: bool = True, singles: int = SHARDED_SINGLES,
+                 limit_s: float = SHARDED_LAUNCH_S) -> tuple:
+    """``world`` rank processes (``chip_smoke.py <flag>``, by default
+    ``--sharded-rank``; ``extra``: more of each rank's spec) on the card,
+    under one wall-clock limit; rank 0's traffic once it serves (``reps``
+    timed batch POSTs, after a warm one unless ``warm`` is False, and
+    ``singles`` GETs); SIGTERM to rank 0, then every rank must exit 0. A
+    rank that exits early, or a launch past its limit, fails with each
+    rank's last output. -> (each rank's numbers, the traffic's)."""
     port, http = free_port(), free_port()
-    tag = f"{backend}_w{world}"
+    tag = tag or f"{backend}_w{world}"
     procs, logs, outs = [], [], []
-    deadline = time.monotonic() + SHARDED_LAUNCH_S
+    deadline = time.monotonic() + limit_s
 
     def tails(why: str):
         text = "\n".join(f"--- rank {r} (exit {p.poll()}) ---\n{logs[r].read_text()[-2500:]}"
@@ -2526,10 +2571,10 @@ def launch_ranks(d: Path, world: int, backend: str, seed: int, *, flat: bool) ->
             spec.write_text(json.dumps({
                 "rank": r, "world": world, "backend": backend, "port": port, "http": http,
                 "dir": str(d), "seed": seed, "flat": flat, "out": str(outs[r]),
-                "flat_kept": str(d / "flat_kept.npz")}))
+                "flat_kept": str(d / "flat_kept.npz"), **(extra or {})}))
             with open(logs[r], "w") as log:
                 procs.append(subprocess.Popen(
-                    [sys.executable, str(Path(__file__).resolve()), "--sharded-rank", str(spec)],
+                    [sys.executable, str(Path(__file__).resolve()), flag, str(spec)],
                     stdout=log, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent))
         while True:
             if any(p.poll() is not None for p in procs):
@@ -2541,7 +2586,7 @@ def launch_ranks(d: Path, world: int, backend: str, seed: int, *, flat: bool) ->
                     break
             except OSError:
                 time.sleep(0.5)
-        traffic = sharded_traffic(http)
+        traffic = sharded_traffic(http, reps, warm, singles)
         procs[0].send_signal(__import__("signal").SIGTERM)
         for p in procs:
             try:
@@ -2558,6 +2603,23 @@ def launch_ranks(d: Path, world: int, backend: str, seed: int, *, flat: bool) ->
     return [json.loads(o.read_text()) for o in outs], traffic
 
 
+def serving_dir(d: Path, art: Path, n_rows: int) -> dict:
+    """The directory users serve from, over the phase-``index`` artifact:
+    ``index`` (a link to it), ``params.json`` at nprobe 16 and
+    ``ids.parquet`` with its sidecar (made once; phases sharded and
+    sharded_encoder share it) -> the ids' numbers."""
+    from abstracts_search_tpu_torch.index.tune import write_params
+
+    made = d / "ids_parquet.json"
+    if not made.exists():
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        (d / "index").symlink_to(art.resolve())
+        write_params(d / "params.json", {"nprobe": 16, "k": 10})
+        made.write_text(json.dumps(write_ids(d / "ids.parquet", n_rows)))
+    return json.loads(made.read_text())
+
+
 def sharded_phase(seed: int, by_path: dict, art: Path, d: Path, n_rows: int, kept: dict,
                   kept_singles: tuple, flat_kept: tuple, codes_bytes: int, smi: str) -> dict:
     """The phase-``index`` artifact served corpus-sharded, as users serve
@@ -2565,15 +2627,9 @@ def sharded_phase(seed: int, by_path: dict, art: Path, d: Path, n_rows: int, kep
     W = 4 gloo ranks sharing the card (then FlatIndex sharded over them)
     and W = 1 under NCCL, each held against one process's device-storage
     results on the same queries (phase serve)."""
-    from abstracts_search_tpu_torch.index.tune import write_params
-
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
-    (d / "index").symlink_to(art.resolve())
-    write_params(d / "params.json", {"nprobe": 16, "k": 10})
     res = {"label": f"W ranks sharing one {torch.cuda.get_device_name(0)}: no scaling "
                     f"number", "nvidia_smi": smi,
-           "ids_parquet": write_ids(d / "ids.parquet", n_rows)}
+           "ids_parquet": serving_dir(d, art, n_rows)}
     np.savez(d / "flat_kept.npz", v=flat_kept[0], p=flat_kept[1])
     kv, kp = kept[("text", 16)]
     sv, sp = kept_singles
@@ -2693,7 +2749,8 @@ def served_equal_direct(engine, idx, texts) -> dict:
     return res
 
 
-def encoder_phase(idx, seed: int, by_path: dict, enc_dir: Path) -> dict:
+def encoder_phase(idx, seed: int, by_path: dict, enc_dir: Path,
+                  ref_dir: Path | None = None) -> dict:
     """The stella encoder at full width (Qwen2-1.5B: 28 layers, hidden
     1536, 12 heads, 2 KV heads, FFN 8960, vocab 151,646, MRL 1024) with
     seeded random weights: written by the port's checkpoint writer,
@@ -2805,8 +2862,434 @@ def encoder_phase(idx, seed: int, by_path: dict, enc_dir: Path) -> dict:
 
     res["serve"] = drive("encoder", serve_both, ("topk", "adc_topk"), by_path)
     res["launches"] = by_path["encoder"]
+    if ref_dir is not None:
+        t = time.perf_counter()
+        one_process_reference(idx, emb, bf16, ref_dir, seed)
+        res["sharded_encoder_reference_seconds"] = time.perf_counter() - t
     del emb, bf16
     release()
+    return res
+
+
+def one_process_reference(idx, emb, bf16, ref_dir: Path, seed: int) -> None:
+    """Phase sharded_encoder's reference, made by this one process on the
+    loaded index and encoders (phase encoder's; the crc32 tokenizer in the
+    whitespace tokenizer's place): the f32 query vectors of the serve
+    texts, the bf16 ones of the first ENC_BF16_TEXTS, the served rows of
+    the batch and of the singles (ids as the real IdMap names them), and
+    the one-process ingest of phase sharded_encoder's snapshot, dumped."""
+    from abstracts_search_tpu_torch.config import Config
+    from abstracts_search_tpu_torch.driver import Driver
+    from abstracts_search_tpu_torch.serve.engine import SearchEngine
+
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    ref_dir.mkdir(parents=True)
+    tok = stable_tokenizer(emb.pipeline.cfg.backbone.vocab_size)
+    emb.pipeline.tokenizer = bf16.tokenizer = tok
+    engine = SearchEngine(idx, _LazyIds(), emb, nprobe=16)
+    named = lambda rows: [[{"id": id_of(int(r["id"][1:])), "score": r["score"]}  # noqa: E731
+                           for r in row] for row in rows]
+    q32 = engine.encode_queries(SERVE_TEXTS)
+    rows = {"batch": named(engine.search_batch_encoded(q32, 10)),
+            "singles": named([engine.search(t, 10) for t in SERVE_TEXTS[:SHARDED_SINGLES]]),
+            "codes_bytes": idx.resident_bytes}
+    np.savez(ref_dir / "vectors.npz", q32=q32,
+             q16=bf16.embed_queries(SERVE_TEXTS[:ENC_BF16_TEXTS]))
+    url, _ = write_snapshot(ref_dir / "ingest_src", seed, ENC_INGEST_WORKS, ENC_INGEST_WORDS)
+    drv = Driver(Config(manifest_url=url, embed_dim=emb.pipeline.cfg.mrl_dim),
+                 root=ref_dir / "ingest_one", embedder=emb, device=idx.device)
+    rows["ingest"] = {"url": url, "rows": sum(drv.target_build().values()),
+                      "dumped": drv.target_dump()}
+    (ref_dir / "rows.json").write_text(json.dumps(rows))
+
+
+# -- the stella encoder over a 2-D mesh ---------------------------------------------------
+
+# (W, tp, backend): tp alone, dp and tp, KV heads replicated (tp 4 > 2 KV
+# heads), then the collective path at tp 1 under NCCL
+ENC_LAYOUTS = ((2, 2, "gloo"), (4, 2, "gloo"), (4, 4, "gloo"), (1, 1, "nccl"))
+ENC_LAUNCH_S = 480
+# gloo stages every all-reduce through host memory: its layouts time the
+# f32 forward at batch 32 (f32 and bf16 at 256 under NCCL), take medians
+# of 2 (5), and send one batch POST (a warm one and 5 timed)
+ENC_GLOO_BATCH, ENC_GLOO_REPS, ENC_GLOO_POSTS = 32, 2, 1
+# and 20 single GETs (SHARDED_SINGLES under NCCL)
+ENC_GLOO_SINGLES = 20
+# f32 against one process: phase encoder's card-vs-CPU limit; bf16: the
+# CPU tests' limit on unit embeddings
+ENC_F32_ATOL, ENC_BF16_ATOL = ENC_CPU_ATOL, 0.02
+# a served hit whose score is this close to one process's counts as a
+# near-tie (the f32 embeddings differ by up to ENC_F32_ATOL a component)
+ENC_TIE = 5e-4
+# the build's ingest over the (2 x 2) mesh: phase ingest's generator, cut
+ENC_INGEST_WORKS, ENC_INGEST_WORDS = 128, (20, 40)
+# the ranks' device (every rank on the one card)
+ENC_DEVICE = "cuda:0"
+# the bf16 check's texts (the f32 one takes all 256)
+ENC_BF16_TEXTS = 64
+
+
+def stable_tokenizer(vocab_size: int):
+    """The whitespace tokenizer with crc32 in place of Python's ``hash``:
+    the one-process reference and every rank tokenize alike."""
+    import zlib
+
+    def tok(text):
+        return [zlib.crc32(w.encode()) % (vocab_size - 2) + 2 for w in text.split()] or [1]
+
+    return tok
+
+
+def weights_digest(sd) -> tuple:
+    """(sha256 over each tensor's name and bytes in name order, bytes)."""
+    import hashlib
+
+    h, n = hashlib.sha256(), 0
+    for name in sorted(sd):
+        b = sd[name].detach().contiguous().cpu().view(torch.uint8).numpy()
+        h.update(name.encode())
+        h.update(memoryview(b))
+        n += b.nbytes
+    return h.hexdigest(), n
+
+
+def expected_digest(enc_dir: Path, tp: int, tp_rank: int) -> tuple:
+    """``weights_digest`` of the checkpoint's slices that tp rank
+    ``tp_rank`` of ``tp`` holds (``parallel/sharding.py``'s layout)."""
+    from abstracts_search_tpu_torch.models.checkpoint import load_file
+    from abstracts_search_tpu_torch.models.registry import (ENCODER_META, ENCODER_WEIGHTS,
+                                                            _stella_config_from_json)
+    from abstracts_search_tpu_torch.parallel.sharding import param_slice, tp_layout
+
+    scfg = _stella_config_from_json(json.loads((enc_dir / ENCODER_META).read_text()))
+    layout = tp_layout(scfg, tp, tp_rank)
+    return weights_digest(load_file(enc_dir / ENCODER_WEIGHTS,
+                                    select=lambda n, _: param_slice(n, scfg, layout)))
+
+
+def mesh_forward_times(pipe, big: int, reps: int) -> dict:
+    """Host-clock ms of ``pipe.forward`` on the prompted serve texts at
+    batch 1 and ``big`` (every rank the same batch: its shard's rows, the
+    tp all-reduces, the shards' all-gather, the copy back, which
+    synchronizes), medians of ``reps`` after one warm call; then the
+    all-reduces of one forward, counted and timed each between
+    synchronizes in a run of their own."""
+    from abstracts_search_tpu_torch.models import qwen2
+
+    toks = pipe._tokenize(SERVE_TEXTS[:big], "s2p_query")
+    t = pipe._bucket_for(max(len(x) for x in toks))
+    ids = np.full((len(toks), t), pipe.pad_id, np.int64)
+    mask = np.zeros((len(toks), t), np.int64)
+    for r, x in enumerate(toks):
+        ids[r, :len(x)], mask[r, :len(x)] = x, 1
+    out = {"bucket": t}
+    orig, calls = qwen2.all_reduce, []
+
+    def timed(mesh, x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = orig(mesh, x)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0) * 1e3)
+        return y
+
+    for b in (1, big):
+        pipe.forward(ids[:b], mask[:b])
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            pipe.forward(ids[:b], mask[:b])
+            times.append((time.perf_counter() - t0) * 1e3)
+        calls.clear()
+        qwen2.all_reduce = timed
+        try:
+            pipe.forward(ids[:b], mask[:b])
+        finally:
+            qwen2.all_reduce = orig
+        out[f"batch{b}"] = {"ms": statistics.median(times), "all_reduces": len(calls),
+                            "all_reduce_ms": sum(calls)}
+    return out
+
+
+def encoder_rank(spec: dict) -> int:
+    """One rank of phase sharded_encoder, started as users start ``serve``
+    over a 2-D mesh: ``init_distributed(tp=)``,
+    ``SearchEngine.from_artifacts(embedder="stella", mesh=)`` (this rank's
+    lists and weight slices), ``run_server(cfg, engine=)``: rank 0 serves
+    HTTP until SIGTERM, the others follow. Launch counts from 0 at rank
+    0's warm-up to the stop. Then, the index freed: forward times and all-reduces, the bf16
+    encoder's query vectors, and with ``ingest`` the build's ingest over
+    the same mesh. Writes its numbers to ``spec["out"]``, rank 0 its
+    query vectors to ``spec["vectors"]``."""
+    import dataclasses
+
+    from abstracts_search_tpu_torch.config import Config
+    from abstracts_search_tpu_torch.driver import Driver
+    from abstracts_search_tpu_torch.models import embed
+    from abstracts_search_tpu_torch.models.checkpoint import load_file
+    from abstracts_search_tpu_torch.models.registry import ENCODER_META, ENCODER_WEIGHTS
+    from abstracts_search_tpu_torch.parallel import init_distributed, shutdown_distributed
+    from abstracts_search_tpu_torch.parallel.sharding import param_slice, tp_layout
+    from abstracts_search_tpu_torch.serve.app import run_server, stop_on_signals
+    from abstracts_search_tpu_torch.serve.engine import SearchEngine
+
+    rank, enc_dir = spec["rank"], Path(spec["enc_dir"])
+    logging.basicConfig(level=logging.INFO,
+                        format=f"%(asctime)s rank {rank} %(name)s %(levelname)s %(message)s")
+    meta = json.loads((enc_dir / ENCODER_META).read_text())
+    tok = stable_tokenizer(meta["backbone"]["vocab_size"])
+    embed.load_hf_tokenizer = lambda name: tok
+    t = time.perf_counter()
+    mesh = init_distributed(f"127.0.0.1:{spec['port']}", spec["world"], rank, spec["backend"],
+                            device=ENC_DEVICE, timeout_s=SHARDED_TIMEOUT_S, tp=spec["tp"])
+    res = {"rank": rank, "world": spec["world"], "tp": spec["tp"], "backend": mesh.backend,
+           "init_seconds": time.perf_counter() - t}
+    cfg = Config(index_dir=spec["dir"], ckpt_dir=str(enc_dir), embed_dim=meta["mrl_dim"],
+                 index_storage="device")
+    t = time.perf_counter()
+    engine = SearchEngine.from_artifacts(cfg, index_dir=spec["dir"], embedder="stella",
+                                         hydrate=False, device=ENC_DEVICE, mesh=mesh,
+                                         warmup=False)
+    torch.cuda.synchronize()
+    emb = engine.embedder
+    digest, wbytes = weights_digest(emb.pipeline.model.state_dict())
+    res.update(load_seconds=time.perf_counter() - t, collective_encoder=emb.collective,
+               codes_bytes=engine.index.resident_bytes,
+               codes_gib=engine.index.resident_bytes / 2**30, weights_sha256=digest,
+               weights_bytes=wbytes, weights_gib=wbytes / 2**30,
+               allocated_gib=torch.cuda.memory_allocated() / 2**30)
+    reset_counts()
+    rec = None
+    if rank == 0:
+        engine.warmup()
+        rec = section_times(engine)
+    run_server(cfg, engine=engine, port=spec["http"], on_bound=stop_on_signals)
+    torch.cuda.synchronize()
+    res["launches"] = {k: v for k, v in counts().items() if v}
+    if rank == 0:
+        med = lambda key, n: statistics.median(rec[key][n])  # noqa: E731
+        res["split"] = {"encode_batch256_ms": med("encode", len(SERVE_TEXTS)),
+                        "search_batch256_ms": med("search", len(SERVE_TEXTS)),
+                        "encode_single_ms": med("encode", 1), "search_single_ms": med("search", 1)}
+    del engine
+    release()
+    res["forward_f32"] = mesh_forward_times(emb.pipeline, spec["batch"], spec["reps"])
+    bcfg = dataclasses.replace(emb.pipeline.cfg, backbone=dataclasses.replace(
+        emb.pipeline.cfg.backbone, dtype=torch.bfloat16))
+    del emb
+    release()
+    select = None
+    if mesh.tp > 1:
+        layout = tp_layout(bcfg, mesh.tp, mesh.tp_rank)
+        select = lambda n, _: param_slice(n, bcfg, layout)  # noqa: E731
+    bf16 = embed.EmbeddingPipeline(bcfg, load_file(enc_dir / ENCODER_WEIGHTS, select=select),
+                                   tok, batch_size=cfg.embed_batch, batch_buckets=True,
+                                   device=ENC_DEVICE, mesh=mesh)
+    q16 = bf16.embed_queries(SERVE_TEXTS[:ENC_BF16_TEXTS])
+    if spec["backend"] == "nccl":
+        res["forward_bf16"] = mesh_forward_times(bf16, spec["batch"], spec["reps"])
+    del bf16
+    release()
+    if spec.get("ingest"):
+        icfg = Config(manifest_url=spec["ingest"]["url"], ckpt_dir=str(enc_dir),
+                      embed_dim=meta["mrl_dim"])
+        drv = Driver(icfg, root=spec["ingest"]["root"], embedder="stella", device=ENC_DEVICE,
+                     mesh=mesh)
+        t = time.perf_counter()
+        got = drv.target_build()
+        secs = time.perf_counter() - t
+        st = drv.build_stats
+        res["ingest"] = {"partitions": sorted(got), "rows": sum(got.values()), "seconds": secs,
+                         "rows_per_s": sum(got.values()) / secs,
+                         "embed_s": sum(x["embed_s"] for x in st.values()),
+                         "dumped": drv.target_dump(),
+                         "second_build_rows": sum(drv.target_build().values())}
+        del drv
+        release()
+    if rank == 0:
+        np.savez(spec["vectors"], q32=rec["q32"], q16=q16)
+    Path(spec["out"]).write_text(json.dumps(res))
+    shutdown_distributed(mesh)
+    return 0
+
+
+def section_times(engine) -> dict:
+    """Rank 0: host-clock ms of each encode and search the served traffic
+    runs (the engine's collective sections, by query count), and the
+    vectors of the batch of the serve texts, recorded by wrapping the
+    engine's two halves (which the HTTP handler and the batcher call)."""
+    rec = {"encode": {}, "search": {}, "q32": None}
+    encode, search = engine.encode_queries, engine.search_batch_encoded
+
+    def timed(key, fn, x, *a, **kw):
+        t = time.perf_counter()
+        out = fn(x, *a, **kw)
+        rec[key].setdefault(len(x), []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def encode_queries(texts):
+        q = timed("encode", encode, texts)
+        if list(texts) == SERVE_TEXTS:
+            rec["q32"] = q
+        return q
+
+    engine.encode_queries = encode_queries
+    engine.search_batch_encoded = lambda q, *a, **kw: timed("search", search, q, *a, **kw)
+    return rec
+
+
+def hold_rows_against(rows: list, want: list, tie: float) -> dict:
+    """Served rows against one process's on the same texts: the same ids
+    in the same order, except near-ties: a row that differs must keep its
+    scores within ``tie`` of one process's place by place, and every id in
+    only one of the two must score within ``tie`` of the k-th score."""
+    ties, max_diff = 0, 0.0
+    for i, (got, ref) in enumerate(zip(rows, want, strict=True)):
+        g_ids, r_ids = [r["id"] for r in got], [r["id"] for r in ref]
+        g_s = np.asarray([r["score"] for r in got])
+        r_s = np.asarray([r["score"] for r in ref])
+        if len(g_s) != len(r_s):
+            raise AssertionError(f"query {i}: {len(g_s)} hits, one process {len(r_s)}")
+        if len(g_s):
+            max_diff = max(max_diff, float(np.abs(g_s - r_s).max()))
+        if g_ids == r_ids:
+            continue
+        only = [s for x, s in zip(g_ids, g_s) if x not in r_ids] + \
+               [s for x, s in zip(r_ids, r_s) if x not in g_ids]
+        if np.abs(g_s - r_s).max() > tie or any(abs(s - r_s[-1]) > tie for s in only):
+            raise AssertionError(f"query {i}: served ids {g_ids} differ from one process's "
+                                 f"{r_ids} beyond near-ties ({g_s} vs {r_s})")
+        ties += 1
+    return {"queries": len(rows), "rows_differing_at_near_ties": ties,
+            "max_score_diff": max_diff, "tie": tie}
+
+
+def dump_rows(root: Path) -> tuple:
+    """The parquet dump under a driver root, sorted by id."""
+    from abstracts_search_tpu_torch.config import Config
+    from abstracts_search_tpu_torch.storage.shards import ShardReader
+
+    ids, vecs = [], []
+    for i, v in ShardReader(root / Config().data_dir).iter_row_groups():
+        ids += i
+        vecs.append(v)
+    order = np.argsort(ids)
+    return np.asarray(ids)[order], np.concatenate(vecs)[order]
+
+
+def sharded_encoder_phase(seed: int, by_path: dict, art: Path, d: Path, n_rows: int,
+                          enc_dir: Path, ref_dir: Path, smi: str) -> dict:
+    """Phase encoder's full-width checkpoint served over 2-D meshes from
+    the phase-``index`` artifact (``serving_dir``), each of ENC_LAYOUTS,
+    every rank a process (``--encoder-rank``) sharing the one card; the
+    256 serve texts typed in one POST and SHARDED_SINGLES GETs through
+    rank 0's port; at (2 x 2) the build's ingest too. Held against phase
+    encoder's one-process reference (``one_process_reference``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from abstracts_search_tpu_torch.ingest import oa_filter
+    from abstracts_search_tpu_torch.models.checkpoint import load_file
+    from abstracts_search_tpu_torch.models.registry import ENCODER_WEIGHTS
+    from abstracts_search_tpu_torch.parallel.sharding import stella_param_specs
+
+    res = {"label": f"W ranks share one {torch.cuda.get_device_name(0)}: no scaling number",
+           "nvidia_smi": smi, "ids_parquet": serving_dir(d, art, n_rows),
+           "reduced": [f"gloo layouts: the f32 forward timed at batch 1 and {ENC_GLOO_BATCH} "
+                       f"(not 256; bf16 not timed), medians of {ENC_GLOO_REPS}, "
+                       f"{ENC_GLOO_POSTS} batch POST and no warm one, {ENC_GLOO_SINGLES} of "
+                       f"{SHARDED_SINGLES} single GETs: each of a forward's 56 all-reduces, "
+                       f"staged through host memory by ranks sharing the card, takes 1-8 ms, "
+                       f"and the smoke has 1,200 s",
+                       f"bf16 vectors checked on the first {ENC_BF16_TEXTS} serve texts",
+                       f"ingest: {ENC_INGEST_WORKS} works per partition of abstracts of "
+                       f"{ENC_INGEST_WORDS[0]}-{ENC_INGEST_WORDS[1]} words (phase ingest: "
+                       f"{INGEST_WORKS} of {INGEST_WORDS[0]}-{INGEST_WORDS[1]}), for the same "
+                       f"reason"],
+           "tolerances": {"f32_atol": ENC_F32_ATOL, "bf16_atol": ENC_BF16_ATOL,
+                          "near_tie": ENC_TIE}}
+    oa_filter.ensure_filter_built()
+    ref = dict(np.load(ref_dir / "vectors.npz"))
+    one = json.loads((ref_dir / "rows.json").read_text())
+    one_ing = dump_rows(ref_dir / "ingest_one")
+    sd = load_file(enc_dir / ENCODER_WEIGHTS)
+    full = sum(t.numel() * t.element_size() for t in sd.values())
+    rep = sum(sd[k].numel() * sd[k].element_size()
+              for k, v in stella_param_specs(sd).items() if v is None)
+    del sd
+    with ThreadPoolExecutor(8) as ex:
+        want = {(tp, r): ex.submit(expected_digest, enc_dir, tp, r)
+                for tp in {tp for _, tp, _ in ENC_LAYOUTS} for r in range(tp)}
+        want = {key: f.result() for key, f in want.items()}
+
+    for world, tp, backend in ENC_LAYOUTS:
+        tag = f"{backend}_w{world}_tp{tp}"
+        gloo, ingest = backend == "gloo", (world, tp) == (4, 2)
+        extra = {"tp": tp, "enc_dir": str(enc_dir), "batch": ENC_GLOO_BATCH if gloo else 256,
+                 "reps": ENC_GLOO_REPS if gloo else 5, "vectors": str(d / f"{tag}_vectors.npz"),
+                 "ingest": ({"url": one["ingest"]["url"], "root": str(d / f"ingest_{tag}")}
+                            if ingest else None)}
+        t = time.perf_counter()
+        ranks, traffic = launch_ranks(d, world, backend, seed, flag="--encoder-rank", tag=tag,
+                                      extra=extra, reps=ENC_GLOO_POSTS if gloo else 5,
+                                      warm=not gloo,
+                                      singles=ENC_GLOO_SINGLES if gloo else SHARDED_SINGLES,
+                                      limit_s=ENC_LAUNCH_S)
+        vec = dict(np.load(extra["vectors"]))
+        out = {"seconds": time.perf_counter() - t, "ranks": ranks,
+               **{k: v for k, v in traffic.items() if k not in ("batch", "singles")}}
+        for r in ranks:
+            if not (r["launches"].get("topk") and r["launches"].get("adc_topk")):
+                raise AssertionError(f"{tag} rank {r['rank']} launched {r['launches']}")
+            if (r["weights_sha256"], r["weights_bytes"]) != want[(tp, r["rank"] % tp)]:
+                raise AssertionError(f"{tag} rank {r['rank']}: its weights are not its slices "
+                                     f"of the checkpoint")
+            if not r["collective_encoder"]:
+                raise AssertionError(f"{tag} rank {r['rank']} holds no part of the encoder")
+            # 1/tp of the layers, a little more where KV heads are replicated
+            r["layer_bytes_share"] = (r["weights_bytes"] - rep) / (full - rep)
+        for j in range(tp):
+            held = sum(r["codes_bytes"] for r in ranks if r["rank"] % tp == j)
+            if held != one["codes_bytes"]:
+                raise AssertionError(f"{tag}: tp index {j}'s shards hold {held} bytes of "
+                                     f"codes, one process {one['codes_bytes']}")
+        out["weights"] = {"slices_sha256_equal_checkpoint": True, "replicated_bytes": rep,
+                          "layer_bytes": full - rep, "one_over_tp": 1 / tp}
+        for key, atol in (("q32", ENC_F32_ATOL), ("q16", ENC_BF16_ATOL)):
+            err = float(np.abs(vec[key] - ref[key]).max())
+            out[f"{key}_vs_one_process"] = {
+                "texts": len(ref[key]), "max_abs_err": err, "atol": atol,
+                "bit_equal": bool(np.array_equal(vec[key], ref[key])),
+                "min_cosine": float(cosines(vec[key], ref[key]).min())}
+            if err > atol:
+                raise AssertionError(f"{tag}: {key} differs from one process's: {err}")
+        exact = backend == "nccl"
+        if exact and not out["q32_vs_one_process"]["bit_equal"]:
+            raise AssertionError(f"{tag}: the f32 vectors are not one process's bit for bit")
+        for key in ("batch", "singles"):
+            out[key] = hold_rows_against(traffic[key], one[key][:len(traffic[key])],
+                                         0.0 if exact else ENC_TIE)
+            if exact and out[key]["rows_differing_at_near_ties"]:
+                raise AssertionError(f"{tag}: served hits differ from one process's")
+        if ingest:
+            ing = [r["ingest"] for r in ranks]
+            root = d / f"ingest_{tag}"
+            stores = sorted(p.name for p in root.glob("data.sqlite.p*"))
+            ids, vecs = dump_rows(root)
+            same = np.array_equal(ids, one_ing[0])
+            err = float(np.abs(vecs - one_ing[1]).max()) if same else None
+            out["ingest"] = {"ranks": ing, "stores": stores, "rows": len(ids),
+                             "one_process_rows": len(one_ing[0]), "max_abs_err": err,
+                             "atol": ENC_F32_ATOL}
+            if (stores != [f"data.sqlite.p{s}" for s in range(world // tp)] or not same
+                    or err > ENC_F32_ATOL or any(x["second_build_rows"] for x in ing)):
+                raise AssertionError(f"{tag}: the ingest over the mesh differs from one "
+                                     f"process's: {out['ingest']}")
+        path = "sharded_encoder" if gloo else "sharded_encoder_nccl"
+        by_path.setdefault(path, {})
+        for r in ranks:
+            for k, v in r["launches"].items():
+                by_path[path][k] = by_path[path].get(k, 0) + v
+        res[tag] = out
     return res
 
 
@@ -2954,11 +3437,13 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="device,build,kernels,flat,index_build,sharded_build,ivf_flat,"
                             "ingest,index,serve,stages_batch256,encoder,hybrid,host,sharded,"
-                            "legacy",
+                            "sharded_encoder,legacy",
                     help="comma-separated subset, for development runs")
-    # one rank of phase sharded or sharded_build (started by the phase itself)
+    # one rank of phase sharded, sharded_build or sharded_encoder (started by
+    # the phase itself)
     ap.add_argument("--sharded-rank", metavar="SPEC_JSON", help=argparse.SUPPRESS)
     ap.add_argument("--build-rank", metavar="SPEC_JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--encoder-rank", metavar="SPEC_JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2969,6 +3454,8 @@ def main() -> int:
         return sharded_rank(json.loads(Path(args.sharded_rank).read_text()))
     if args.build_rank:
         return build_rank(json.loads(Path(args.build_rank).read_text()))
+    if args.encoder_rank:
+        return encoder_rank(json.loads(Path(args.encoder_rank).read_text()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -3059,6 +3546,7 @@ def main() -> int:
 
     art = Path(__file__).resolve().parent / "build" / "smoke_index"
     enc_dir = art.parent / "smoke_encoder"
+    ref_dir = art.parent / "smoke_encoder_ref"
     try:
         kept = None
         if "index" in phases:
@@ -3086,7 +3574,8 @@ def main() -> int:
                 del ctx
                 if "encoder" in phases:
                     t = time.perf_counter()
-                    res = encoder_phase(idx, args.seed, by_path, enc_dir)
+                    res = encoder_phase(idx, args.seed, by_path, enc_dir,
+                                        ref_dir if "sharded_encoder" in phases else None)
                     emit({"phase": "encoder", **res, "seconds": time.perf_counter() - t})
             del idx
             release()
@@ -3118,15 +3607,20 @@ def main() -> int:
             del idx, ctx
             release()
 
-        if kept is not None and "flat" in phases and "sharded" in phases:
-            t = time.perf_counter()
-            sharded_dir = art.parent / "smoke_sharded"
-            try:
+        sharded_dir = art.parent / "smoke_sharded"
+        try:
+            if kept is not None and "flat" in phases and "sharded" in phases:
+                t = time.perf_counter()
                 res = sharded_phase(args.seed, by_path, art, sharded_dir, args.n_rows, kept,
                                     kept_singles, flat_kept, codes_bytes, smi)
-            finally:
-                shutil.rmtree(sharded_dir, ignore_errors=True)
-            emit({"phase": "sharded", **res, "seconds": time.perf_counter() - t})
+                emit({"phase": "sharded", **res, "seconds": time.perf_counter() - t})
+            if kept is not None and ref_dir.is_dir() and "sharded_encoder" in phases:
+                t = time.perf_counter()
+                res = sharded_encoder_phase(args.seed, by_path, art, sharded_dir, args.n_rows,
+                                            enc_dir, ref_dir, smi)
+                emit({"phase": "sharded_encoder", **res, "seconds": time.perf_counter() - t})
+        finally:
+            shutil.rmtree(sharded_dir, ignore_errors=True)
 
         if "legacy" in phases:
             t = time.perf_counter()
@@ -3163,6 +3657,7 @@ def main() -> int:
     finally:
         shutil.rmtree(art, ignore_errors=True)
         shutil.rmtree(enc_dir, ignore_errors=True)
+        shutil.rmtree(ref_dir, ignore_errors=True)
 
     if set(KERNELS) <= set(rows):
         emit({"kernels": kernels_line(rows, by_path)})

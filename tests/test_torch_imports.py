@@ -36,6 +36,25 @@ def test_importing_the_port_leaves_jax_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_the_tp_rules_import_alone_without_jax():
+    """``parallel/sharding.py``, the counterpart of the JAX package's TP
+    rules, imports in a fresh interpreter with neither JAX nor the JAX
+    package, and gives stella's layout at tp 4."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "from abstracts_search_tpu_torch.parallel.sharding import tp_layout\n"
+        "from abstracts_search_tpu_torch.models.qwen2 import Qwen2Config\n"
+        "print(tp_layout(Qwen2Config.stella_1_5b(), 4, 3).kv_heads)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'abstracts_search_tpu'))\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "(1, 2)", r.stdout + r.stderr
+
+
 def test_the_port_imports_without_pyarrow():
     """The card's machine has no pyarrow: every module of the port (the
     engine, the HTTP app and the id map among them) and chip_smoke.py

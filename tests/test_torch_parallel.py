@@ -63,9 +63,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(world: int, job_dir: Path, tasks: list, timeout: float = 240) -> list:
-    """The job on ``world`` gloo ranks; -> each rank's results."""
-    (job_dir / "job.json").write_text(json.dumps({"tasks": tasks}))
+def run_ranks(world: int, job_dir: Path, tasks: list, timeout: float = 240, **job) -> list:
+    """The job on ``world`` gloo ranks (``job``: more of ``job.json``, e.g.
+    ``tp``); -> each rank's results."""
+    (job_dir / "job.json").write_text(json.dumps({"tasks": tasks, **job}))
     port = _free_port()
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, str(WORKER), str(r), str(world), str(port),

@@ -36,13 +36,45 @@ Tasks (``kind``):
 - ``driver_fill``: ``Driver(mesh=)``: ``target_train``, ``target_fill``
   and ``target_tune``, recording the parquet row groups each reads, then
   ``target_fill(incremental=True)``.
+
+On a 2-D mesh (``job.json``'s ``tp``: ``init_distributed(tp=)``), with the
+HF tokenizer's place taken by ``stable_tokenizer`` (crc32 of each word:
+the same ids in every process, unlike the whitespace tokenizer's
+``hash``):
+- ``encode``: the stella encoder of the port checkpoint ``ckpt`` over the
+  mesh: ``get_embedder("stella", mesh=)`` at f32, or an
+  ``EmbeddingPipeline(mesh=)`` of the checkpoint's weights at ``dtype``
+  bf16; ``forward`` of the ``ids``/``mask`` npz batch, documents and
+  queries of ``texts``, ``_batch_pad`` at ``pads``, and this rank's state
+  dict;
+- ``engine_tp``: ``SearchEngine.from_artifacts(embedder="stella", mesh=)``
+  over ``dir``: rank 0 sends two malformed requests (refused before any
+  section), then searches ``texts`` in one batch and the first ``singles``
+  one at a time and stops the followers; the others ``follow()``;
+- ``embedder_choice``: ``get_embedder(embedder, mesh=)`` with the
+  checkpoint ``ckpt`` on rank 0 and the directory ``empty`` (no weights)
+  on the others; the class of what each rank raised;
+- ``ingest_tp``: ``Driver(embedder="stella", mesh=)``: ``target_build``
+  of a ``file://`` manifest, ``target_dump``, a second ``target_build``
+  (its partitions, none on a re-run), then ``target_fill`` and
+  ``target_tune`` (run over the shard axis by tp index 0's ranks).
 """
 
+import dataclasses
 import json
 import sys
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def stable_tokenizer(vocab_size: int):
+    """The whitespace tokenizer's shape with crc32 in place of ``hash``."""
+    def tok(text: str) -> list:
+        return [zlib.crc32(w.encode()) % (vocab_size - 2) + 2 for w in text.split()] or [1]
+
+    return tok
 
 
 def main() -> int:
@@ -84,7 +116,7 @@ def main() -> int:
     torch.set_num_threads(1)
     job = json.loads((job_dir / "job.json").read_text())
     mesh = init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu",
-                            timeout_s=job.get("timeout_s", 60))
+                            timeout_s=job.get("timeout_s", 60), tp=job.get("tp", 1))
     out = {}
     for task in job["tasks"]:
         name, kind = task["name"], task["kind"]
@@ -246,11 +278,91 @@ def main() -> int:
             out[f"{name}/nprobe"] = np.int64(params["nprobe"])
             out[f"{name}/recall"] = np.float64(params["achieved_recall"])
             out[f"{name}/deltas"] = np.int64(len(d.delta_dirs()))
+        elif kind == "embedder_choice":
+            from abstracts_search_tpu_torch.models import embed
+            from abstracts_search_tpu_torch.models.registry import get_embedder
+
+            embed.load_hf_tokenizer = lambda model_name: stable_tokenizer(128)
+            cfg = Config(ckpt_dir=task["ckpt"] if rank == 0 else task["empty"], embed_dim=16)
+            try:
+                get_embedder(task["embedder"], cfg, device="cpu", mesh=mesh)
+                out[f"{name}/raised"] = np.asarray("")
+            except Exception as e:  # noqa: BLE001 — the test reads which
+                out[f"{name}/raised"] = np.asarray(type(e).__name__)
+        elif kind in ("encode", "engine_tp", "ingest_tp"):
+            out.update(stella_task(task, mesh, stable_tokenizer))
         else:
             raise ValueError(f"unknown task kind {kind!r}")
     np.savez(job_dir / f"out{rank}.npz", **out)
     shutdown_distributed(mesh)
     return 0
+
+
+def stella_task(task: dict, mesh, tokenizer) -> dict:
+    """The ``encode``, ``engine_tp`` and ``ingest_tp`` tasks (docstring)."""
+    import numpy as np
+    import torch
+
+    from abstracts_search_tpu_torch.config import Config
+    from abstracts_search_tpu_torch.driver import Driver
+    from abstracts_search_tpu_torch.models import embed
+    from abstracts_search_tpu_torch.models.checkpoint import load_file
+    from abstracts_search_tpu_torch.models.registry import (ENCODER_META, ENCODER_WEIGHTS,
+                                                            _stella_config_from_json,
+                                                            get_embedder)
+    from abstracts_search_tpu_torch.serve.engine import SearchEngine
+
+    name, kind = task["name"], task["kind"]
+    meta = json.loads((Path(task["ckpt"]) / ENCODER_META).read_text())
+    vocab = meta["backbone"]["vocab_size"]
+    embed.load_hf_tokenizer = lambda model_name: tokenizer(vocab)
+    cfg = Config(ckpt_dir=task["ckpt"], **task.get("cfg", {}))
+    out = {}
+    if kind == "encode":
+        if task.get("dtype", "f32") == "f32":
+            pipe = get_embedder("stella", cfg, device="cpu", mesh=mesh).pipeline
+        else:
+            scfg = _stella_config_from_json(meta)
+            scfg = dataclasses.replace(scfg, backbone=dataclasses.replace(
+                scfg.backbone, dtype=torch.bfloat16))
+            pipe = embed.EmbeddingPipeline(
+                scfg, load_file(Path(task["ckpt"]) / ENCODER_WEIGHTS), tokenizer(vocab),
+                batch_size=cfg.embed_batch, batch_buckets=True, mesh=mesh)
+        batch = np.load(task["batch"])
+        out[f"{name}/forward"] = pipe.forward(batch["ids"], batch["mask"])
+        out[f"{name}/docs"] = pipe(task["texts"])
+        out[f"{name}/queries"] = pipe.embed_queries(task["texts"])
+        out[f"{name}/pads"] = np.asarray([pipe._batch_pad(n) for n in task["pads"]])
+        for k, v in pipe.model.state_dict().items():
+            out[f"{name}/sd/{k}"] = v.float().numpy()
+    elif kind == "engine_tp":
+        engine = SearchEngine.from_artifacts(cfg, index_dir=task["dir"], embedder="stella",
+                                             hydrate=False, device="cpu", mesh=mesh)
+        if mesh.rank == 0:
+            refused = 0
+            for bad in (lambda: engine.search_batch([1, 2]),
+                        lambda: engine.search_batch(task["texts"], k=0)):
+                try:
+                    bad()
+                except ValueError:
+                    refused += 1
+            out[f"{name}/refused"] = np.int64(refused)
+            rows = engine.search_batch(task["texts"], 10)
+            rows += [engine.search(t, 10) for t in task["texts"][:task["singles"]]]
+            out[f"{name}/ids"] = np.asarray([[r["id"] for r in row] for row in rows])
+            out[f"{name}/scores"] = np.asarray([[r["score"] for r in row] for row in rows])
+            engine.stop_followers()
+        else:
+            engine.follow()
+    else:
+        d = Driver(cfg, root=task["root"], embedder="stella", device="cpu", mesh=mesh)
+        out[f"{name}/partitions"] = np.asarray(sorted(d.target_build()))
+        out[f"{name}/dumped"] = np.int64(d.target_dump())
+        out[f"{name}/again"] = np.asarray(sorted(d.target_build()), dtype=str)
+        out[f"{name}/filled"] = np.bool_(d.target_fill(kmeans_iters=task["kmeans_iters"]))
+        out[f"{name}/tuned"] = np.bool_(d.target_tune(n_queries=task["n_queries"], k=3))
+        out[f"{name}/nprobe"] = np.int64(json.loads(d.params_path.read_text())["nprobe"])
+    return out
 
 
 if __name__ == "__main__":
