@@ -66,10 +66,50 @@
 //     threshold. After the first tiles almost nothing passes.
 //   - a grid sized to the card: one block per SM, and the wrapper's plan
 //     sets the ranges so that the grid is one wave.
-// f32 operands keep the f32-FMA scan (f32scan::range_kernel): TF32 would
-// break the HIGHEST-precision contract of the f32 path, so the route is
-// chosen by dtype, not as a fallback. No --use_fast_math: decoded
-// fast-mode values may be denormal.
+//
+// Exact mode at k 1 over many bf16 queries (tc::kone::range_kernel, Q >=
+// 257; the index build's assignment is Q 131,072-262,144 x 65,536 x 1024).
+// What bounds it: operations, 2 Q N D at 989 TFLOP/s, 17.8 ms at Q 131,072;
+// every query meets every centroid and only one (value, row) a query leaves.
+// The wgmma scan above was built for Q <= 256 and, at this shape, was held
+// by its staging (256 x 128 tiles: 85 flop per byte staged from L2, 206 GB
+// a call), a 3-stage ring drained by wait_group 0 and __syncthreads every
+// 64-deep step, and candidate lists sized for k in the thousands. The k-1
+// scan instead:
+//   - 128 x 256 tiles in 2-block clusters: both blocks walk the same
+//     centroid tiles, and each loads half of a tile by one TMA multicast
+//     into both rings, so a block stages 32 KiB from L2 per 4.2 MFLOP (128
+//     flop a byte, 137 GB a call);
+//   - a producer warpgroup (one thread issues, registers lowered by
+//     setmaxnreg) and two consumer warpgroups of wgmma.m64n256k16 on a
+//     4-stage ring with a full and an empty mbarrier a stage, one wgmma
+//     group kept in flight, no __syncthreads in the loop. Each consumer
+//     warp frees a stage in both blocks with a CTA-scope arrive: a
+//     cluster-scope release there took the scan from 25.5 to 56 ms;
+//   - the epilogue in registers (running_max): a running (max, lowest row)
+//     per query row across the whole range, reduced over the 4 lanes that
+//     share a row by shuffles, one entry a query written to the outputs,
+//     no second pass when the range is the whole corpus. What is left: at
+//     each tile's end both warpgroups drain their wgmma groups and run the
+//     epilogue while the tensor cores wait (10-15% of the time at the build
+//     shape, measured by leaving the epilogue out); with no loads at all
+//     the scan takes ~90% of its time, so the bytes no longer hold it. It
+//     ran at ~0.7 of the operations bound on an H100 (PERF.md).
+//
+// f32 operands (simt::range_kernel; Q <= 8 and very large k keep the
+// f32-FMA scan, f32scan::range_kernel): TF32 would break the
+// HIGHEST-precision contract of the f32 path, so the route is chosen by
+// dtype, not as a fallback. What bounds it: operations at 67 TFLOP/s of
+// f32 FMA (the IVF-Flat probe, Q 256 x 4,096 x 1,025: 32 us; plain-L2
+// k-means' window, Q 262,144: 33 ms). The FMA scan it replaced staged
+// element by element behind two __syncthreads a step and fed 8 FMAs from
+// 6 shared-memory loads. The register-blocked scan holds 8 queries x 8
+// (or 4) rows a thread, reads float4 fragments (16 loads per 256 FMAs),
+// stages by TMA into a 4-stage ring, and selects from the registers; the
+// 64-query tile (the probe) spreads 8 warps over the rows so that the
+// probe's 128 blocks hold 8 warps each. What is left: its FMA loop issues
+// at ~0.67 of the f32 peak with 8 warps of 254 registers an SM.
+// No --use_fast_math: decoded fast-mode values may be denormal.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -77,6 +117,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -193,7 +235,9 @@ struct FastSel {
 static_assert(sizeof(ExactSel::E) == 8 && sizeof(FastSel::E) == 8, "8-byte entries");
 
 // ---------------------------------------------------------------------------
-// f32 operands: f32 FMAs from shared memory, insertion into sorted lists.
+// f32 operands at Q <= 8, or at a k whose lists the register-blocked scan
+// (simt:: below) cannot hold: f32 FMAs from shared memory, insertion into
+// sorted lists. Instantiated at 8 queries x 128 rows a block.
 
 namespace f32scan {
 
@@ -565,6 +609,76 @@ __device__ __forceinline__ void select_tile(float (&acc)[MT][NT][4], int qoff,
   }
 }
 
+// Exact mode at k 1: fold a tile of scores into each query's running
+// (max, lowest row), all in registers. acc[i][j][v] is laid out as in
+// select_tile; rbase is this thread's first row (r0 + roff + 2tg), so its
+// rows rbase + 8j + c ascend with (j, c); rows >= r_end are left out. The
+// tile's maximum rarely beats the running one after the first tiles; only
+// then is its lowest row looked for. Tiles arrive in ascending row order,
+// so an equal later score never displaces. (A tree of fmaxf in place of
+// the chain needs 2 NT more registers: beside the k-1 scan's 128 sums,
+// ptxas then waits on the wgmma groups early, and the scan took 31-33 ms,
+// not 25.5, at the build shape on an H100; tools/topk_variants.py.)
+template <int MT, int NT>
+__device__ __forceinline__ void running_max(const float (&acc)[MT][NT][4], float (&rv)[MT][2],
+                                            int (&ri)[MT][2], int rbase, int r_end) {
+  const bool edge = rbase + 8 * (NT - 1) + 1 >= r_end;   // some row of this thread past the end
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (!edge || rbase + 8 * j + c < r_end) m = fmaxf(m, acc[i][j][2 * h + c]);
+      if (m > rv[i][h]) {
+        // the lowest row holding m (rows past the end are above every valid one)
+        int col = 0;
+        float val = m;
+#pragma unroll
+        for (int j = NT - 1; j >= 0; --j)
+#pragma unroll
+          for (int c = 1; c >= 0; --c)
+            if (acc[i][j][2 * h + c] == m) {
+              col = 8 * j + c;
+              val = acc[i][j][2 * h + c];
+            }
+        rv[i][h] = val;
+        ri[i][h] = rbase + col;
+      }
+    }
+}
+
+// The 4 lanes of a quad (same g) share their queries: reduce the running
+// (max, lowest row) across them, ties to the lowest row.
+template <int MT>
+__device__ __forceinline__ void quad_max(float (&rv)[MT][2], int (&ri)[MT][2]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float ov = __shfl_xor_sync(FULL, rv[i][h], o);
+        const int oi = __shfl_xor_sync(FULL, ri[i][h], o);
+        if (ov > rv[i][h] || (ov == rv[i][h] && oi < ri[i][h])) {
+          rv[i][h] = ov;
+          ri[i][h] = oi;
+        }
+      }
+}
+
+// A query's k-1 result: to the outputs when the range is the whole corpus
+// (cand null: no second pass), else to its range's scratch entry.
+__device__ __forceinline__ void put_k1(float v, int i, int gq, ExactSel::E* cand, int n_ranges,
+                                       int range, float* out_v, int* out_i) {
+  const ExactSel::E e{v, i};
+  if (cand) cand[(size_t)gq * n_ranges + range] = e;
+  else ExactSel::out(e, KeyParams{}, &out_v[gq], &out_i[gq]);
+}
+
 template <typename Sel>
 __device__ __forceinline__ void init_lists(typename Sel::E* lst, int* cnt, int qb, int k,
                                            int t, int threads) {
@@ -773,7 +887,452 @@ __global__ void __launch_bounds__(C::THREADS, 1) range_kernel(
 
 }  // namespace wg
 
+// -- kernel 1 at k 1 for many queries (exact mode, bf16, 16-byte rows): the
+// build's assignment, Q in the hundreds of thousands over 65,536 centroids.
+// A 2-block cluster shares each centroid tile: block r of the pair loads
+// half of it by one TMA multicast into both blocks' rings. Per block, a
+// producer warpgroup (one issuing thread, registers lowered by setmaxnreg)
+// keeps a 4-stage ring of 64-deep slices in flight, each stage with a full
+// and an empty mbarrier; two consumer warpgroups each multiply 64 queries
+// by the tile's 256 centroids (wgmma.m64n256k16, one group kept in flight)
+// and release each stage to the producers of both blocks. The epilogue is
+// running_max: each thread's running (max, lowest row) of its two query
+// rows stays in registers across the range, and one (value, row) a query
+// is written at the end.
+
+namespace kone {
+
+constexpr int BM = 128, BN = 256, STAGES = 4, CLUSTER = 2;
+constexpr int THREADS = 384;                // a producer warpgroup, two consumer warpgroups
+constexpr int HALF = BN / CLUSTER;          // centroid rows each block of the pair loads
+constexpr int A_BYTES = BM * DK * 2;        // the query slice of a stage
+constexpr int STAGE_BYTES = (BM + BN) * DK * 2;
+constexpr int ARRIVALS = CLUSTER * 8;       // consumer warps of both blocks free a stage
+// 1 KiB to align the ring, the ring, a full and an empty barrier a stage
+constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE_BYTES + 16 * STAGES;
+
+__device__ __forceinline__ uint32_t cta_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init_n(uint32_t bar, uint32_t n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(n));
+}
+// arrive on the barrier at this shared offset in block `cta` of the cluster.
+// The default (CTA-scope) release: a cluster-scope release fence here sat on
+// the consumers' critical path every stage (the scan took 56 ms, not 25.5,
+// at the build shape on an H100; tools/topk_variants.py). The stage's wgmma
+// reads are complete (wait_group) before the arrive, and the producer's
+// next copy into it waits on this barrier.
+__device__ __forceinline__ void arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n"
+      "}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+// box {64 deep, rows} at (depth c0, row c1) into the same offset of every
+// block in `mask`, each block's barrier at `bar` counting the bytes
+__device__ __forceinline__ void tma_load_mc(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_operands(float (&d)[1][32][4]) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) asm volatile("" : "+f"(d[0][j][v])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[1][32][4], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0][0][0]), "+f"(d[0][0][1]), "+f"(d[0][0][2]), "+f"(d[0][0][3]),
+        "+f"(d[0][1][0]), "+f"(d[0][1][1]), "+f"(d[0][1][2]), "+f"(d[0][1][3]),
+        "+f"(d[0][2][0]), "+f"(d[0][2][1]), "+f"(d[0][2][2]), "+f"(d[0][2][3]),
+        "+f"(d[0][3][0]), "+f"(d[0][3][1]), "+f"(d[0][3][2]), "+f"(d[0][3][3]),
+        "+f"(d[0][4][0]), "+f"(d[0][4][1]), "+f"(d[0][4][2]), "+f"(d[0][4][3]),
+        "+f"(d[0][5][0]), "+f"(d[0][5][1]), "+f"(d[0][5][2]), "+f"(d[0][5][3]),
+        "+f"(d[0][6][0]), "+f"(d[0][6][1]), "+f"(d[0][6][2]), "+f"(d[0][6][3]),
+        "+f"(d[0][7][0]), "+f"(d[0][7][1]), "+f"(d[0][7][2]), "+f"(d[0][7][3]),
+        "+f"(d[0][8][0]), "+f"(d[0][8][1]), "+f"(d[0][8][2]), "+f"(d[0][8][3]),
+        "+f"(d[0][9][0]), "+f"(d[0][9][1]), "+f"(d[0][9][2]), "+f"(d[0][9][3]),
+        "+f"(d[0][10][0]), "+f"(d[0][10][1]), "+f"(d[0][10][2]), "+f"(d[0][10][3]),
+        "+f"(d[0][11][0]), "+f"(d[0][11][1]), "+f"(d[0][11][2]), "+f"(d[0][11][3]),
+        "+f"(d[0][12][0]), "+f"(d[0][12][1]), "+f"(d[0][12][2]), "+f"(d[0][12][3]),
+        "+f"(d[0][13][0]), "+f"(d[0][13][1]), "+f"(d[0][13][2]), "+f"(d[0][13][3]),
+        "+f"(d[0][14][0]), "+f"(d[0][14][1]), "+f"(d[0][14][2]), "+f"(d[0][14][3]),
+        "+f"(d[0][15][0]), "+f"(d[0][15][1]), "+f"(d[0][15][2]), "+f"(d[0][15][3]),
+        "+f"(d[0][16][0]), "+f"(d[0][16][1]), "+f"(d[0][16][2]), "+f"(d[0][16][3]),
+        "+f"(d[0][17][0]), "+f"(d[0][17][1]), "+f"(d[0][17][2]), "+f"(d[0][17][3]),
+        "+f"(d[0][18][0]), "+f"(d[0][18][1]), "+f"(d[0][18][2]), "+f"(d[0][18][3]),
+        "+f"(d[0][19][0]), "+f"(d[0][19][1]), "+f"(d[0][19][2]), "+f"(d[0][19][3]),
+        "+f"(d[0][20][0]), "+f"(d[0][20][1]), "+f"(d[0][20][2]), "+f"(d[0][20][3]),
+        "+f"(d[0][21][0]), "+f"(d[0][21][1]), "+f"(d[0][21][2]), "+f"(d[0][21][3]),
+        "+f"(d[0][22][0]), "+f"(d[0][22][1]), "+f"(d[0][22][2]), "+f"(d[0][22][3]),
+        "+f"(d[0][23][0]), "+f"(d[0][23][1]), "+f"(d[0][23][2]), "+f"(d[0][23][3]),
+        "+f"(d[0][24][0]), "+f"(d[0][24][1]), "+f"(d[0][24][2]), "+f"(d[0][24][3]),
+        "+f"(d[0][25][0]), "+f"(d[0][25][1]), "+f"(d[0][25][2]), "+f"(d[0][25][3]),
+        "+f"(d[0][26][0]), "+f"(d[0][26][1]), "+f"(d[0][26][2]), "+f"(d[0][26][3]),
+        "+f"(d[0][27][0]), "+f"(d[0][27][1]), "+f"(d[0][27][2]), "+f"(d[0][27][3]),
+        "+f"(d[0][28][0]), "+f"(d[0][28][1]), "+f"(d[0][28][2]), "+f"(d[0][28][3]),
+        "+f"(d[0][29][0]), "+f"(d[0][29][1]), "+f"(d[0][29][2]), "+f"(d[0][29][3]),
+        "+f"(d[0][30][0]), "+f"(d[0][30][1]), "+f"(d[0][30][2]), "+f"(d[0][30][3]),
+        "+f"(d[0][31][0]), "+f"(d[0][31][1]), "+f"(d[0][31][2]), "+f"(d[0][31][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// grid (query tiles rounded up to the cluster, ranges); cand null when the
+// range is the whole corpus
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1) range_kernel(
+    int nq, int n_eff, int d, int range_rows, ExactSel::E* __restrict__ cand,
+    float* __restrict__ out_v, int* __restrict__ out_i, const __grid_constant__ CUtensorMap tmq,
+    const __grid_constant__ CUtensorMap tmx) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  const uint32_t full = sbase + STAGES * STAGE_BYTES, empty = full + 8 * STAGES;
+  const int t = threadIdx.x, wgi = t >> 7;
+  const int q0 = blockIdx.x * BM;
+  const int r_begin = blockIdx.y * range_rows;
+  const int r_end = min(r_begin + range_rows, n_eff);
+  const int n_tiles = r_end > r_begin ? (r_end - r_begin + BN - 1) / BN : 0;
+  const int ksteps = d > 0 ? (d + DK - 1) / DK : 1;
+  const int total = n_tiles * ksteps;
+  if (t == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init_n(full + 8 * s, 1);
+      mbar_init_n(empty + 8 * s, ARRIVALS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();   // both blocks' barriers exist before any copy or remote arrive
+
+  if (wgi == 0) {   // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (t == 0) {
+      const uint32_t rank = cta_rank();
+      for (int it = 0; it < total; ++it) {
+        const int s = it % STAGES;
+        wg::mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);   // round 0 passes
+        const uint32_t st = sbase + s * STAGE_BYTES, bar = full + 8 * s;
+        const int r0 = r_begin + (it / ksteps) * BN, d0 = (it % ksteps) * DK;
+        wg::mbar_expect(bar, STAGE_BYTES);   // own queries + both halves of the tile
+        wg::tma_load(st, &tmq, d0, q0, bar);
+        tma_load_mc(st + A_BYTES + rank * HALF * DK * 2, &tmx, d0, r0 + (int)rank * HALF, bar,
+                    (uint16_t)((1u << CLUSTER) - 1));
+      }
+    }
+    cluster_sync();   // neither block exits while the other may still arrive on it
+    return;
+  }
+
+  // ptxas gives the whole kernel 168 registers (the launch bound), but
+  // without this raise it serializes the wgmma groups (C7518: a dependence
+  // on a compiler-inserted wait in a divergent path), and the scan took
+  // 30.5 ms, not 25, at the build shape on an H100
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int cw = wgi - 1, warp = (t >> 5) & 3, lane = t & 31, g = lane >> 2, tg = lane & 3;
+  // a stage is free once every consumer warp of both blocks has read it
+  auto release = [&](int s) {
+    if (lane == 0) {
+      for (uint32_t c = 0; c < CLUSTER; ++c) arrive_cluster(empty + 8 * s, c);
+    }
+  };
+  float acc[1][32][4];
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[0][j][v] = 0.f;
+  float rv[1][2] = {{-INFINITY, -INFINITY}};
+  int ri[1][2] = {{IDX_NONE, IDX_NONE}};
+  for (int it = 0; it < total; ++it) {
+    const int s = it % STAGES, ks = it % ksteps;
+    wg::mbar_wait(full + 8 * s, (it / STAGES) & 1);
+    const uint32_t st = sbase + s * STAGE_BYTES;
+    const uint64_t da = wg::desc(st + cw * 64 * DK * 2), db = wg::desc(st + A_BYTES);
+    fence_operands(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk)   // a tile's first slice overwrites the sums
+      wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk, ks > 0 || kk > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if (ks != ksteps - 1) {   // keep this slice's group in flight, free the last one's stage
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (ks > 0) release((it - 1) % STAGES);
+      continue;
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_operands(acc);
+    if (ks > 0) release((it - 1) % STAGES);
+    release(s);
+    running_max<1, 32>(acc, rv, ri, r_begin + (it / ksteps) * BN + 2 * tg, r_end);
+  }
+  quad_max<1>(rv, ri);
+  if (tg == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gq = q0 + cw * 64 + warp * 16 + g + 8 * h;
+      if (gq < nq) put_k1(rv[0][h], ri[0][h], gq, cand, gridDim.y, blockIdx.y, out_v, out_i);
+    }
+  }
+  cluster_sync();   // neither block exits while the other may still arrive on it
+}
+
+}  // namespace kone
+
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// f32 operands, register-blocked (true f32: no tensor cores, no TF32). A
+// block multiplies QT queries (64 or 128) by a tile of 128 corpus rows; each
+// warp holds 64 queries x TN / WN rows, each thread 8 queries x 2 NT rows of
+// sums in the fragment layout select_tile reads (query qoff + 16i + g + 8h,
+// row roff + 8j + 2tg + c). Both operands are staged 32 deep (128-byte rows)
+// into a 4-stage ring by TMA tensor copies, one thread issuing them and an
+// mbarrier a stage counting the bytes, 128-byte swizzled: the 8 (or 4) rows
+// a warp reads at once hold their float4 fragments in distinct banks. Each
+// thread sums in depth order. One __syncthreads a step frees the stage the
+// next copies overwrite. Selection from the registers: select_tile's lists
+// for k > 1, running_max at k 1 (exact mode). Rows that are not 16-byte
+// aligned are staged by scalar loads into the same layout.
+
+namespace simt {
+
+constexpr int DK = 32;        // depth per stage: 128-byte rows
+constexpr int STAGES = 4;
+constexpr int TN = 128;       // corpus rows per tile
+constexpr int CB = 16;        // candidate slots per query
+
+// float offset of float4 chunk c of staged row r (TMA's 128-byte swizzle)
+__device__ __forceinline__ int swz(int r, int c) { return r * DK + ((c ^ (r & 7)) << 2); }
+
+template <int QT, int WN>
+struct Cfg {
+  static constexpr int NT = TN / WN / 8;              // 8-row fragment columns a thread holds
+  static constexpr int THREADS = 32 * (QT / 64) * WN;
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int STAGE_BYTES = (QT + TN) * DK * 4;
+  // 1 KiB to align the ring, the ring, a barrier a stage, then per query a
+  // list of k entries, CB candidate slots and a count (at k 1 the lists
+  // hold the warps' partial maxima instead)
+  static constexpr size_t smem(int k) {
+    return 1024 + (size_t)STAGES * STAGE_BYTES + 8 * STAGES + 8 * (size_t)QT * (k + CB) +
+           4 * (size_t)QT;
+  }
+  static_assert(NT * 8 * WN == TN && QT % 64 == 0 && WN <= CB + 1, "warp layout");
+};
+
+// Stage depth slice [d0, d0 + DK) of queries [q0, q0 + QT) (staged rows
+// 0..QT-1) and corpus rows [r0, r0 + TN) (rows QT..) by scalar loads, zero
+// past nq, r_end and d: the staging of rows TMA cannot copy.
+template <int QT, int THREADS>
+__device__ __forceinline__ void stage_scalar(float* st, const float* __restrict__ q,
+                                             const float* __restrict__ x, int q0, int nq,
+                                             int r0, int r_end, int d0, int d, int t) {
+  constexpr int CH = DK / 4;   // 16-byte chunks per staged row
+  for (int e = t; e < (QT + TN) * CH; e += THREADS) {
+    const int row = e / CH, c = e % CH, gd = d0 + 4 * c;
+    const float* src;
+    bool ok;
+    if (row < QT) {
+      ok = q0 + row < nq;
+      src = q + (size_t)(q0 + row) * d + gd;
+    } else {
+      const int gr = r0 + row - QT;
+      ok = gr < r_end;
+      src = x + (size_t)gr * d + gd;
+    }
+    float4 v;
+    v.x = ok && gd < d ? src[0] : 0.f;
+    v.y = ok && gd + 1 < d ? src[1] : 0.f;
+    v.z = ok && gd + 2 < d ? src[2] : 0.f;
+    v.w = ok && gd + 3 < d ? src[3] : 0.f;
+    *reinterpret_cast<float4*>(st + swz(row, c)) = v;
+  }
+}
+
+// acc += the staged slice's products, depth in order
+template <int QT, int NT>
+__device__ __forceinline__ void multiply(const float* st, float (&acc)[4][NT][4], int qoff,
+                                         int roff, int g, int tg) {
+  // a thread's query rows all swizzle by g, its corpus rows by (2tg + c) & 7
+  const float* as = st + (qoff + g) * DK;
+  const float* bs = st + (QT + roff + 2 * tg) * DK;
+#pragma unroll
+  for (int kq = 0; kq < DK / 4; ++kq) {
+    float4 a[4][2], b[NT][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        a[i][h] = *reinterpret_cast<const float4*>(as + (16 * i + 8 * h) * DK + ((kq ^ g) << 2));
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int cb = (kq ^ ((2 * tg + c) & 7)) << 2;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        b[j][c] = *reinterpret_cast<const float4*>(bs + (8 * j + c) * DK + cb);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& s = acc[i][j][2 * h + c];
+            s = fmaf(a[i][h].x, b[j][c].x, s);
+            s = fmaf(a[i][h].y, b[j][c].y, s);
+            s = fmaf(a[i][h].z, b[j][c].z, s);
+            s = fmaf(a[i][h].w, b[j][c].w, s);
+          }
+  }
+}
+
+// grid (ranges, query tiles); cand null when exact mode at k 1 has one
+// range (no second pass); tmq/tmx: f32 boxes {32 deep, QT or TN rows} (VEC)
+template <typename Sel, int QT, int WN, bool VEC>
+__global__ void __launch_bounds__(Cfg<QT, WN>::THREADS, 1) range_kernel(
+    const float* __restrict__ q, const float* __restrict__ x, int nq, int n_eff, int d, int k,
+    int range_rows, KeyParams kp, typename Sel::E* __restrict__ cand, float* __restrict__ out_v,
+    int* __restrict__ out_i, const __grid_constant__ CUtensorMap tmq,
+    const __grid_constant__ CUtensorMap tmx) {
+  using C = Cfg<QT, WN>;
+  using E = typename Sel::E;
+  constexpr int NT = C::NT;
+  constexpr bool EXACT = std::is_same<Sel, ExactSel>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  unsigned char* ring_p = smem_raw + (sbase - raw);
+  float* ring = reinterpret_cast<float*>(ring_p);
+  const uint32_t bars = sbase + STAGES * C::STAGE_BYTES;
+  E* lst = reinterpret_cast<E*>(ring_p + STAGES * C::STAGE_BYTES + 8 * STAGES);   // [QT][k]
+  E* cbuf = lst + (size_t)QT * k;                                                  // [QT][CB]
+  int* cnt = reinterpret_cast<int*>(cbuf + (size_t)QT * CB);                       // [QT]
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, g = lane >> 2, tg = lane & 3;
+  const int qoff = (warp / WN) * 64, roff = (warp % WN) * (TN / WN);
+  const int q0 = blockIdx.y * QT, qlim = min(QT, nq - q0);
+  const int r_begin = blockIdx.x * range_rows;
+  const int r_end = min(r_begin + range_rows, n_eff);
+  const bool k1 = EXACT && k == 1;
+  if (!k1) tc::init_lists<Sel>(lst, cnt, QT, k, t, C::THREADS);
+  if (VEC && t == 0) {
+    for (int s = 0; s < STAGES; ++s) tc::wg::mbar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_tiles = r_end > r_begin ? (r_end - r_begin + TN - 1) / TN : 0;
+  const int ksteps = d > 0 ? (d + DK - 1) / DK : 1;
+  const int total = n_tiles * ksteps;
+  auto issue = [&](int s) {   // VEC: thread 0 only
+    const int r0 = r_begin + (s / ksteps) * TN, d0 = (s % ksteps) * DK;
+    const int slot = s % STAGES;
+    if (VEC) {
+      const uint32_t st = sbase + slot * C::STAGE_BYTES, bar = bars + 8 * slot;
+      tc::wg::mbar_expect(bar, C::STAGE_BYTES);
+      tc::wg::tma_load(st, &tmq, d0, q0, bar);
+      tc::wg::tma_load(st + QT * DK * 4, &tmx, d0, r0, bar);
+    } else {
+      stage_scalar<QT, C::THREADS>(ring + slot * (C::STAGE_BYTES / 4), q, x, q0, nq, r0, r_end,
+                                   d0, d, t);
+    }
+  };
+  for (int s = 0; s < STAGES - 1 && s < total; ++s)
+    if (!VEC || t == 0) issue(s);
+  float acc[4][NT][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+  float rv[4][2];
+  int ri[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rv[i][h] = -INFINITY;
+      ri[i][h] = IDX_NONE;
+    }
+  for (int step = 0; step < total; ++step) {
+    if (VEC) tc::wg::mbar_wait(bars + 8 * (step % STAGES), (step / STAGES) & 1);
+    // slice `step` landed, and every thread is done with the stage the
+    // next copies overwrite
+    __syncthreads();
+    if (step + STAGES - 1 < total && (!VEC || t == 0)) issue(step + STAGES - 1);
+    multiply<QT, NT>(ring + (step % STAGES) * (C::STAGE_BYTES / 4), acc, qoff, roff, g, tg);
+    if (step % ksteps != ksteps - 1) continue;
+    const int r0 = r_begin + (step / ksteps) * TN;
+    if (k1) {
+      tc::running_max<4, NT>(acc, rv, ri, r0 + roff + 2 * tg, r_end);
+    } else {
+      tc::select_tile<Sel, 4, NT, C::WARPS, CB>(acc, qoff, roff, r0, r_end, qlim, k, lst, cbuf,
+                                                cnt, kp, warp, lane);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+  }
+  if (!k1) {
+    tc::finish<Sel, C::WARPS, CB>(lst, cbuf, cnt, q0, qlim, k, t, C::THREADS, kp, cand);
+    return;
+  }
+  // k 1: the quad's maximum, then the WN warps that share the queries
+  tc::quad_max<4>(rv, ri);
+  ExactSel::E* red = reinterpret_cast<ExactSel::E*>(lst);   // [QT][WN]
+  if (tg == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        red[(qoff + 16 * i + g + 8 * h) * WN + warp % WN] = {rv[i][h], ri[i][h]};
+  }
+  __syncthreads();
+  for (int ql = t; ql < qlim; ql += C::THREADS) {
+    ExactSel::E b = red[ql * WN];
+    for (int w = 1; w < WN; ++w)
+      if (ExactSel::better(red[ql * WN + w], b)) b = red[ql * WN + w];
+    tc::put_k1(b.v, b.i, q0 + ql, reinterpret_cast<ExactSel::E*>(cand), gridDim.x, blockIdx.x,
+               out_v, out_i);
+  }
+}
+
+}  // namespace simt
 
 // One block per query: k rounds of a block-wide argmax over the heads of
 // the sorted per-range lists.
@@ -829,15 +1388,20 @@ __global__ void __launch_bounds__(MERGE_THREADS) topk_merge_kernel(
   }
 }
 
-// Pass-1 configurations, numbered as the wrapper's plan names them.
-enum { FMA32 = 0, FMA8 = 1, TC_MID = 2, TC_LARGE = 3 };
+// Pass-1 configurations, numbered as the wrapper's plan names them (0, the
+// 32-query FMA scan, was replaced by SIMT64 and SIMT128).
+enum { FMA8 = 1, TC_MID = 2, TC_LARGE = 3, SIMT64 = 4, SIMT128 = 5, TC_K1 = 6 };
+// warps along the rows of the register-blocked scan's tile
+constexpr int SIMT64_WN = 8, SIMT128_WN = 4;
 
 size_t smem_bytes(int cfg, int qb, int k) {
   switch (cfg) {
-    case FMA32: return f32scan::Tile<32, 64>::smem(k);
     case FMA8: return f32scan::Tile<8, 128>::smem(k);
     case TC_MID: return tc::wg::Mid::smem(qb, k);
     case TC_LARGE: return tc::wg::Large::smem(qb, k);
+    case SIMT64: return simt::Cfg<64, SIMT64_WN>::smem(k);
+    case SIMT128: return simt::Cfg<128, SIMT128_WN>::smem(k);
+    case TC_K1: return tc::kone::SMEM;
   }
   return 0;
 }
@@ -880,17 +1444,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major bf16 [rows, d] tensor read in boxes of {64 deep, box_rows},
-// 128-byte swizzled, zero past its edges
-bool tensor_map(CUtensorMap* m, const void* base, int rows, int d, int box_rows) {
+// a row-major [rows, d] tensor (bf16, or f32 with f32 set) read in boxes of
+// {128 bytes deep, box_rows}, 128-byte swizzled, zero past its edges
+bool tensor_map(CUtensorMap* m, const void* base, int rows, int d, int box_rows,
+                bool f32 = false) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
+  const int size = f32 ? 4 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)(rows > 0 ? rows : 1)};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)tc::DK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * size};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / size), (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -914,6 +1481,45 @@ cudaError_t launch_wg(int vec, const void* q, const void* x, int nq, int n_eff, 
   return cudaGetLastError();
 }
 
+template <typename Sel, int QT, int WN>
+cudaError_t launch_simt(int vec, const void* q, const void* x, int nq, int n_eff, int d, int k,
+                        int n_ranges, int range_rows, KeyParams kp, typename Sel::E* cand,
+                        void* out_v, void* out_i, cudaStream_t st) {
+  using C = simt::Cfg<QT, WN>;
+  CUtensorMap tmq{}, tmx{};
+  if (vec && !(tensor_map(&tmq, q, nq, d, QT, true) &&
+               tensor_map(&tmx, x, n_eff, d, simt::TN, true)))
+    return cudaErrorInvalidValue;
+  auto kern = vec ? simt::range_kernel<Sel, QT, WN, true> : simt::range_kernel<Sel, QT, WN, false>;
+  const size_t smem = C::smem(k);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(n_ranges, (nq + QT - 1) / QT), C::THREADS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(x), nq, n_eff, d, k, range_rows,
+      kp, cand, static_cast<float*>(out_v), static_cast<int*>(out_i), tmq, tmx);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_kone(const void* q, const void* x, int nq, int n_eff, int d, int n_ranges,
+                        int range_rows, ExactSel::E* cand, void* out_v, void* out_i,
+                        cudaStream_t st) {
+  namespace K = tc::kone;
+  CUtensorMap tmq{}, tmx{};
+  if (!(tensor_map(&tmq, q, nq, d, K::BM) && tensor_map(&tmx, x, n_eff, d, K::HALF)))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(K::range_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)K::SMEM);
+  if (e != cudaSuccess) return e;
+  const int tiles = (nq + K::BM - 1) / K::BM;
+  const int grid_x = (tiles + K::CLUSTER - 1) / K::CLUSTER * K::CLUSTER;   // whole clusters
+  K::range_kernel<<<dim3(grid_x, n_ranges), K::THREADS, K::SMEM, st>>>(
+      nq, n_eff, d, range_rows, cand, static_cast<float*>(out_v), static_cast<int*>(out_i), tmq,
+      tmx);
+  return cudaGetLastError();
+}
+
 template <typename Sel>
 int launch(const void* q, const void* x, int cfg, int vec, int nq, int n_eff, int d, int k,
            int qb, int n_ranges, int range_rows, KeyParams kp, void* cand_p, void* out_v,
@@ -921,10 +1527,12 @@ int launch(const void* q, const void* x, int cfg, int vec, int nq, int n_eff, in
   using E = typename Sel::E;
   E* cand = static_cast<E*>(cand_p);
   cudaError_t e;
+  // exact mode at k 1 over one range: the register-blocked and k-1 scans
+  // write the outputs themselves
+  const bool direct = std::is_same<Sel, ExactSel>::value && k == 1 && n_ranges == 1 &&
+                      (cfg == SIMT64 || cfg == SIMT128 || cfg == TC_K1);
+  E* first = direct ? nullptr : cand;
   switch (cfg) {
-    case FMA32:
-      e = launch_fma<Sel, 32, 64>(q, x, nq, n_eff, d, k, n_ranges, range_rows, kp, cand, st);
-      break;
     case FMA8:
       e = launch_fma<Sel, 8, 128>(q, x, nq, n_eff, d, k, n_ranges, range_rows, kp, cand, st);
       break;
@@ -936,10 +1544,24 @@ int launch(const void* q, const void* x, int cfg, int vec, int nq, int n_eff, in
       e = launch_wg<tc::wg::Large, Sel>(vec, q, x, nq, n_eff, d, k, qb, n_ranges, range_rows,
                                         kp, cand, st);
       break;
+    case SIMT64:
+      e = launch_simt<Sel, 64, SIMT64_WN>(vec, q, x, nq, n_eff, d, k, n_ranges, range_rows, kp,
+                                          first, out_v, out_i, st);
+      break;
+    case SIMT128:
+      e = launch_simt<Sel, 128, SIMT128_WN>(vec, q, x, nq, n_eff, d, k, n_ranges, range_rows,
+                                            kp, first, out_v, out_i, st);
+      break;
+    case TC_K1:   // exact mode, k 1, 16-byte rows only
+      if (!std::is_same<Sel, ExactSel>::value || k != 1 || !vec) return (int)cudaErrorInvalidValue;
+      e = launch_kone(q, x, nq, n_eff, d, n_ranges, range_rows,
+                      reinterpret_cast<ExactSel::E*>(first), out_v, out_i, st);
+      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return (int)e;
+  if (direct) return (int)cudaSuccess;
   const size_t smem2 = sizeof(int) * (size_t)n_ranges;
   e = cudaFuncSetAttribute(topk_merge_kernel<Sel>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
@@ -954,17 +1576,18 @@ int launch(const void* q, const void* x, int cfg, int vec, int nq, int n_eff, in
 
 extern "C" {
 
-// Shared memory pass 1 needs in configuration cfg (FMA32 and FMA8 for f32
-// operands, TC_* for bf16) with qb queries per block (TC_*) at this k.
+// Shared memory pass 1 needs in configuration cfg (FMA8, SIMT* for f32
+// operands, TC_* for bf16) with qb queries per block (TC_MID, TC_LARGE) at
+// this k.
 size_t topk_smem_bytes(int cfg, int qb, int k) { return smem_bytes(cfg, qb, k); }
 
-// q [nq, d], x [>= n_eff, d]: f32 for cfg FMA32/FMA8, bf16 for cfg TC_*;
-// only rows < n_eff are candidates. qb: queries per block (TC_*; the FMA
-// configurations take 32 and 8). vec = 1: rows and bases 16-byte aligned,
-// so TC_* stage by TMA.
+// q [nq, d], x [>= n_eff, d]: f32 for cfg FMA8/SIMT*, bf16 for cfg TC_*;
+// only rows < n_eff are candidates. qb: queries per block (TC_MID and
+// TC_LARGE; the others take their tile's). vec = 1: rows and bases 16-byte
+// aligned, so TC_* stage by TMA and SIMT* by cp.async; TC_K1 needs it.
 // fast = 1 selects fast mode with lane_bits, chunk_log2 and n_chunks
-// (ignored in exact mode). cand: [nq, n_ranges, k] 8-byte scratch;
-// out_v/out_i: [nq, k]. Returns cudaGetLastError().
+// (ignored in exact mode; TC_K1 refuses it). cand: [nq, n_ranges, k]
+// 8-byte scratch; out_v/out_i: [nq, k]. Returns cudaGetLastError().
 int topk_launch(const void* q, const void* x, int cfg, int vec, int nq, int n_eff, int d,
                 int k, int qb, int n_ranges, int range_rows, int fast, int lane_bits,
                 int chunk_log2, int n_chunks, void* cand, void* out_v, void* out_i,

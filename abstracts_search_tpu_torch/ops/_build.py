@@ -5,7 +5,9 @@ PyTorch headers, so one ``nvcc`` takes seconds. All sources compile in
 parallel (one ``nvcc`` process each) at the first CUDA use, into
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of
 the sources and the flags: an edited source rebuilds, an unchanged one
-is reused. A failed build raises.
+is reused. A failed build raises. nvcc's report (``-Xptxas -v``: each
+kernel function's registers, shared memory and spills) is kept beside
+each library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -74,6 +77,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
             if p.returncode != 0:
                 errors.append(f"{src.name}:\n{log}")
             else:
+                so.with_suffix(".log").write_text(log)
                 os.replace(tmp, so)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
@@ -85,6 +89,29 @@ def build_all() -> dict[str, ctypes.CDLL]:
 
 def library(name: str) -> ctypes.CDLL:
     return build_all()[name]
+
+
+def ptxas_report(name: str) -> dict:
+    """Registers and spill bytes of each kernel function of library
+    ``name``, from its build's ``-Xptxas -v`` report: mangled name ->
+    {"registers", "spill_stores", "spill_loads"}."""
+    log = Path(library(name)._name).with_suffix(".log").read_text()
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn]["spill_stores"], out[fn]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def check(err: int, what: str) -> None:

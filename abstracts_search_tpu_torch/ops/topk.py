@@ -29,9 +29,15 @@ Two implementations behind ``impl``:
   TMA copies), holds up to 256 queries per block so the corpus is read
   once, and selects straight from the accumulator registers: only
   scores that beat their query's current k-th entry reach shared
-  memory. f32 operands keep an f32-FMA scan, since TF32 would break
-  their true-f32 contract. ``_plan`` chooses the route, the queries per
-  block and the ranges;
+  memory. Exact mode at k 1 over many bf16 queries (k-means assignment,
+  the fill's coarse encode) takes a k-1 scan instead: 2-block clusters
+  sharing each centroid tile by TMA multicast, a producer warpgroup, and
+  each query's running (max, lowest row) kept in registers, written
+  once with no second pass. f32 operands take a register-blocked f32
+  scan on the CUDA cores (8 x 8 sums a thread, TMA staging, the
+  same selection from registers), since TF32 would break their
+  true-f32 contract; Q <= 8 and very large k keep the FMA scan.
+  ``_plan`` chooses the route, the queries per block and the ranges;
 - ``"torch"``: the plain version, a chunked scan with a running [Q, k]
   result: ``_topk_torch`` (twin of the JAX package's ``_topk_xla``) and
   ``_topk_torch_fast`` (twin of ``_topk_xla_fast``).
@@ -139,35 +145,54 @@ def _lib():
 _BLOCK_SMEM = 232_448
 
 # first-pass configurations of csrc/topk.cu (topk_launch's ``cfg``).
-# f32 operands, the FMA scan: cfg -> (queries per block, corpus rows per
-# tile, blocks per SM); it stages 32 deep. bf16, the wgmma scan (one
-# block per SM): cfg -> (query rows per tile, corpus rows per tile).
-_FMA = {0: (32, 64, 8), 1: (8, 128, 8)}
+# f32 operands: the register-blocked scan, cfg -> (queries, corpus rows
+# per tile), staged 32 deep by TMA in a 4-stage ring; the FMA scan (Q <= 8,
+# or a k whose lists the first does not hold), cfg -> (queries, rows per
+# tile, blocks per SM), staged 32 deep. bf16, the wgmma scan (one block per
+# SM): cfg -> (query rows per tile, corpus rows per tile); and the k-1
+# scan for many queries: 2-block clusters, a 4-stage ring.
+_SIMT = {4: (64, 128), 5: (128, 128)}
+_SIMT_DK, _SIMT_STAGES, _SIMT_CB = 32, 4, 16
+_FMA = {1: (8, 128, 8)}
 _FMA_DK = 32
 _TC = {2: (128, 256), 3: (256, 128)}
+_K1 = {6: (128, 256)}
+_K1_STAGES = 4
 # the wgmma scan's ring (stages of 64-deep bf16 slices) and candidate
 # slots per query
 _TC_STAGES, _TC_DK, _TC_CB = 3, 64, 16
+# bf16 queries from which exact mode at k 1 takes the k-1 scan. On an H100
+# it was faster at every Q measured, 256 to 32,768 (tools/topk_ab.py
+# --crossover); Q <= 256, the serve probe at nprobe 1, stays on the wgmma
+# scan that serves it
+_K1_MIN_Q = 257
 
 
 class Plan(NamedTuple):
-    cfg: int             # first-pass configuration (``_FMA`` or ``_TC``)
+    cfg: int             # first-pass configuration (``_SIMT``, ``_FMA``, ``_TC`` or ``_K1``)
     qb: int              # queries per block
     tn: int              # corpus rows per tile
-    n_ranges: int        # corpus ranges: grid x of the first pass
+    n_ranges: int        # corpus ranges: the ranges' grid axis of the first pass
     range_rows: int      # rows per range, a multiple of ``tn``
     smem: int            # shared memory bytes per block
 
     @property
     def tensor_cores(self) -> bool:
-        return self.cfg in _TC
+        return self.cfg in _TC or self.cfg in _K1
 
 
 def _smem(cfg: int, qb: int, k: int) -> int:
     """Mirror of ``topk_smem_bytes`` in csrc/topk.cu."""
+    if cfg in _SIMT:   # 1 KiB to align the ring, the ring, a barrier a stage, lists
+        qt, tn = _SIMT[cfg]
+        return (1024 + _SIMT_STAGES * (qt + tn) * _SIMT_DK * 4 + 8 * _SIMT_STAGES
+                + 8 * qt * (k + _SIMT_CB) + 4 * qt)
     if cfg in _FMA:   # query and corpus slices (rows padded by one), scores, lists
         qt, tn, _ = _FMA[cfg]
         return 4 * (qt * _FMA_DK + tn * (_FMA_DK + 1) + qt * tn) + 8 * qt * k
+    if cfg in _K1:   # 1 KiB to align the ring, the ring, a full and an empty barrier a stage
+        qt, tn = _K1[cfg]
+        return 1024 + _K1_STAGES * (qt + tn) * _TC_DK * 2 + 16 * _K1_STAGES
     # 1 KiB to align the ring, the ring, 64 bytes of stage barriers; per
     # query a list of k 8-byte entries, the candidate slots and a count
     qt, tn = _TC[cfg]
@@ -175,31 +200,45 @@ def _smem(cfg: int, qb: int, k: int) -> int:
     return 1024 + ring + 64 + 8 * qb * (k + _TC_CB) + 4 * qb
 
 
-def _plan(qn: int, n_eff: int, k: int, dtype, sms: int) -> Plan:
+def _plan(qn: int, n_eff: int, k: int, dtype, sms: int, *, aligned: bool = True,
+          fast: bool = False) -> Plan:
     """The launch plan for Q ``qn`` queries over ``n_eff`` valid rows.
 
-    f32 operands take the FMA scan (query tile 8 or 32). bf16 operands
-    take the wgmma scan with the smallest query tile that holds all
-    ``qn`` queries (128 or 256), so the corpus is read once; a k whose
-    lists do not fit moves to the 128-query tile, which then serves fewer
-    queries per block, halving down to 1. The ranges fill one wave of the
-    card's ``sms`` SMs, tile-aligned. Raises ValueError for a k no
+    f32 operands take the register-blocked scan: the 128-query tile when
+    its tiles alone fill the card, else the 64-query one, whichever holds
+    the lists; Q <= 8, or a k neither holds, takes the 8-query FMA scan.
+    bf16 operands in exact mode at k 1 with 16-byte rows (``aligned``) and
+    at least ``_K1_MIN_Q`` queries take the k-1 scan (128 queries a block).
+    Other bf16 calls take the wgmma scan with the smallest query tile that
+    holds all ``qn`` queries (128 or 256), so the corpus is read once; a k
+    whose lists do not fit moves to the 128-query tile, which then serves
+    fewer queries per block, halving down to 1. The ranges fill one wave
+    of the card's ``sms`` SMs, tile-aligned. Raises ValueError for a k no
     configuration holds."""
     if dtype == torch.float32:
-        cfg = 1 if qn <= 8 or _smem(0, 32, k) > _BLOCK_SMEM else 0
-        qb, tn, per_sm = _FMA[cfg]
+        cfg = 1
+        if qn > 8:
+            wide = -(-qn // _SIMT[5][0]) >= sms
+            cfg = next((c for c in ((5, 4) if wide else (4,))
+                        if _smem(c, _SIMT[c][0], k) <= _BLOCK_SMEM), 1)
+        qb, tn = (_SIMT[cfg] if cfg in _SIMT else _FMA[cfg][:2])
+        per_sm = _FMA[cfg][2] if cfg in _FMA else 1
     elif dtype == torch.bfloat16:
-        # configurations are numbered by query tile; take the first that
-        # holds every query, then the 128-query tile with fewer queries
-        # per block while the lists do not fit
-        cfg = min((c for c in _TC if _TC[c][0] >= qn), default=max(_TC))
-        qb = min(_TC[cfg][0], qn)
-        if _smem(cfg, qb, k) > _BLOCK_SMEM:
-            cfg = min(_TC)
+        if k == 1 and not fast and aligned and qn >= _K1_MIN_Q:
+            cfg = min(_K1)
+            qb = _K1[cfg][0]
+        else:
+            # configurations are numbered by query tile; take the first that
+            # holds every query, then the 128-query tile with fewer queries
+            # per block while the lists do not fit
+            cfg = min((c for c in _TC if _TC[c][0] >= qn), default=max(_TC))
             qb = min(_TC[cfg][0], qn)
-            while qb > 1 and _smem(cfg, qb, k) > _BLOCK_SMEM:
-                qb //= 2
-        tn, per_sm = _TC[cfg][1], 1
+            if _smem(cfg, qb, k) > _BLOCK_SMEM:
+                cfg = min(_TC)
+                qb = min(_TC[cfg][0], qn)
+                while qb > 1 and _smem(cfg, qb, k) > _BLOCK_SMEM:
+                    qb //= 2
+        tn, per_sm = (_K1[cfg] if cfg in _K1 else _TC[cfg])[1], 1
     else:
         raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
     smem = _smem(cfg, qb, k)
@@ -215,10 +254,12 @@ def _plan(qn: int, n_eff: int, k: int, dtype, sms: int) -> Plan:
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_plan(qn: int, n_eff: int, k: int, dtype, device: int) -> Plan:
+def _launch_plan(qn: int, n_eff: int, k: int, dtype, device: int, aligned: bool = True,
+                 fast: bool = False) -> Plan:
     """``_plan`` for this card, checked once against the kernel's own
     shared-memory count."""
-    p = _plan(qn, n_eff, k, dtype, torch.cuda.get_device_properties(device).multi_processor_count)
+    p = _plan(qn, n_eff, k, dtype, torch.cuda.get_device_properties(device).multi_processor_count,
+              aligned=aligned, fast=fast)
     if _lib().topk_smem_bytes(p.cfg, p.qb, k) != p.smem:
         raise RuntimeError("the top-k plan and csrc/topk.cu disagree on shared memory")
     return p
@@ -246,9 +287,11 @@ def _topk_cuda(q, x, n_valid: int, k: int, chunk: int = 0, lane_bits: int = 0):
     if qn == 0 or k == 0:
         return out_v, out_i
     lib = _lib()
-    p = _launch_plan(qn, n_eff, k, x.dtype, x.device.index)
-    # 16-byte rows and bases: the tensor-core scan stages by TMA
-    vec = d % 8 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+    # 16-byte rows and bases: the tensor-core scans stage by TMA, the
+    # register-blocked f32 scan by cp.async
+    vec = (d % (16 // x.element_size()) == 0 and q.data_ptr() % 16 == 0
+           and x.data_ptr() % 16 == 0)
+    p = _launch_plan(qn, n_eff, k, x.dtype, x.device.index, vec, fast)
     # fast-mode key layout: the chunk's row count and the corpus's chunks
     chunk_log2, n_chunks = (chunk.bit_length() - 1, x.shape[0] // chunk) if fast else (0, 0)
     # one 8-byte list entry per candidate: (f32, i32) exact, int64 key fast

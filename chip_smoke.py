@@ -9,9 +9,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
           versions, TF32 asserted off. Exits non-zero without CUDA.
   build   every kernel from abstracts_search_tpu_torch/csrc with nvcc
           (sm_90a), all sources compiled in parallel; fails unless the
-          top-k library's SASS (cuobjdump) holds tensor-core instructions
-          and every kernel function of both ADC libraries stages by bulk
-          async copies (UBLKCP in its own SASS).
+          top-k library's SASS (cuobjdump) holds tensor-core instructions,
+          kernel 1's k-1 scan (the build's assignment) holds HGMMA in its
+          own, and every kernel function of both ADC libraries stages by
+          bulk async copies (UBLKCP in its own SASS). Prints nvcc's
+          registers and spills (-Xptxas -v) of kernel 1's k-1 scan and
+          register-blocked f32 scan.
   kernels each kernel against its plain PyTorch version on the card at
           the paths' shapes: exact top-k (index mismatches beyond ties
           within f32 accumulation error fail), fast top-k (beyond one
@@ -50,7 +53,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
           version of kernel 1 over the same chunks (near-ties counted);
           the held-out queries' exact top-10 = their planted core sets
           (>= 99%); kernel 1 at the build shape (Q 131,072 x 65,536 x
-          1024 bf16, k 1), at the oracle's (Q 256 x 131,072, k 10) and at
+          1024 bf16, k 1: its plan, cluster and stages, its merge pass's
+          share of the device time), at the oracle's (Q 256 x 131,072, k 10) and at
           the probe's largest swept k, and kernel 3 at that nprobe's live
           slots, each against its plain version, timed beside its bound
           and the library call; the kernel route against the plain route
@@ -86,7 +90,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
           held-out queries at nprobe 16, k 10. Checks the kernel route
           against the plain route (differences only at probe near-ties)
           and recall@10 against an exact f32 top-10 (fails below 0.9);
-          prints QPS, p50 and kernel 1's f32 FMA probe beside its bound.
+          prints QPS, p50 and kernel 1's f32 probe beside its bound, and
+          kernel 1 at plain-L2 k-means' assignment (the 262,144-row
+          training window against the 4,096 centroids, f32, k 1) against
+          its plain version, beside its bound and torch.max(q @ x.T, 1).
   ingest  Driver.target_build on the card: a file:// manifest over 4
           updated_date= partitions of 256 seeded OpenAlex-shaped works
           (abstracts of 100-300 words as abstract_inverted_index; ~10%
@@ -292,7 +299,10 @@ def device_ms(fn, names, reps: int = 10) -> float:
     device time of the kernels whose names hold one of ``names``, over
     ``reps`` calls. A profiler run can miss its first launches, so each
     kernel's mean span counts (a call launches each of its kernels
-    once); a run that saw none of them is repeated, up to three runs."""
+    once); a run that saw none of them is repeated, up to three runs.
+    When all three recorded no CUDA activity at all (the profiler, not the
+    kernels, failed), the call is timed by CUDA events instead and a
+    ``device_ms_by_cuda_events`` line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -312,8 +322,14 @@ def device_ms(fn, names, reps: int = 10) -> float:
         if spans:
             return sum(statistics.mean(v) for v in spans.values()) / 1e3
         seen.append((len(cuda_events), sorted({e.name[:60] for e in cuda_events})[:5]))
-    raise AssertionError(f"the profiler saw no kernel named {names} in three runs "
-                         f"(device events, names seen: {seen})")
+    if any(n for n, _ in seen):
+        raise AssertionError(f"the profiler saw no kernel named {names} in three runs "
+                             f"(device events, names seen: {seen})")
+    ms = cuda_ms(fn, reps=reps, warmup=0)
+    emit({"device_ms_by_cuda_events": {"names": list(names), "ms": ms,
+                                       "reason": "the profiler recorded no CUDA activity "
+                                                 "in three runs"}})
+    return ms
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -856,11 +872,18 @@ def build_kernel_row(idx, corpus, seed: int) -> dict:
     b, by = bound(q.numel() * 2 + N_LISTS * DIM * 2 + qn * 8,
                   2 * qn * N_LISTS * DIM, "bf16")
     dev = device_ms(lambda: run("cuda"), DEVICE_NAMES["topk"], reps=3)
-    merge = device_ms(lambda: run("cuda"), ("topk_merge_kernel",), reps=3)
     plan = topk._launch_plan(qn, N_LISTS, 1, torch.bfloat16, 0)
+    k1 = plan.cfg in topk._K1
+    # the k-1 scan over one range writes the outputs itself: no merge pass
+    merge = (0.0 if k1 and plan.n_ranges == 1 else
+             device_ms(lambda: run("cuda"), ("topk_merge_kernel",), reps=3))
     return {"shape": [qn, N_LISTS, DIM, 1], "dtype": "bf16",
-            "plan": {"cfg": plan.cfg, "queries_per_block": plan.qb,
-                     "query_tiles": -(-qn // plan.qb), "n_ranges": plan.n_ranges},
+            "plan": {"cfg": plan.cfg, "route": "k-1 scan" if k1 else "wgmma scan",
+                     "queries_per_block": plan.qb, "rows_per_tile": plan.tn,
+                     "cluster": 2 if k1 else 1,
+                     "stages": topk._K1_STAGES if k1 else topk._TC_STAGES,
+                     "query_tiles": -(-qn // plan.qb), "n_ranges": plan.n_ranges,
+                     "smem": plan.smem},
             "max_abs_err": err, "index_mismatches": bad, "near_ties": ties,
             "held_rows": BUILD_SUB_ROWS,
             "ms": cuda_ms(lambda: run("cuda"), reps=5),
@@ -1749,11 +1772,46 @@ def ivf_flat_probe_row(idx, q, nprobe: int) -> dict:
             "library_ms": cuda_ms(lambda: torch.topk(qq @ cc[:n].T, nprobe))}
 
 
+def plain_l2_kmeans_row(idx, window: np.ndarray) -> dict:
+    """Kernel 1 at plain-L2 k-means' assignment, k 1: one of IVF-Flat's own
+    windows (its 262,144-row training sample, the windows' size, ones
+    column and zero padding appended) against its padded f32 centroids,
+    the register-blocked f32 route. Held against the plain version on the
+    whole window; the library yardstick is torch.max(q @ x.T, 1) in f32
+    with TF32 off, over 65,536-row sub-windows (1 GiB of scores each)."""
+    from abstracts_search_tpu_torch.index.kmeans import _assign_operands
+    from abstracts_search_tpu_torch.ops import topk
+
+    qq, cc = _assign_operands(torch.from_numpy(window).to(BUILD_DEVICE), idx._c_pad, False)
+    n = idx.n_lists
+    run = lambda impl: topk.streaming_topk(qq, cc, n, 1, impl=impl)  # noqa: E731
+    err, bad, ties = compare_topk(qq, cc, 1, run("cuda"), run("torch"), 1e-5)
+    if bad or err > 1e-5:
+        raise AssertionError(f"kernel 1 at plain-L2 k-means' window: {bad} rows, err {err}")
+    qn, w = qq.shape
+    sub = 65_536
+
+    def library():
+        for lo in range(0, qn, sub):
+            torch.max(qq[lo:lo + sub] @ cc[:n].T, 1)
+
+    plan = topk._launch_plan(qn, n, 1, torch.float32, 0)
+    b, by = bound((n + qn) * (DIM + 1) * 4 + qn * 8, 2 * qn * n * (DIM + 1), "f32")
+    return {"shape": [qn, n, w, 1], "dtype": "f32", "plan": plan._asdict(),
+            "max_abs_err": err, "index_mismatches": bad, "near_ties": ties,
+            "ms": cuda_ms(lambda: run("cuda"), reps=5, warmup=1),
+            "device_ms": device_ms(lambda: run("cuda"), DEVICE_NAMES["topk"], reps=3),
+            "plain_ms": cuda_ms(lambda: run("torch"), reps=1, warmup=1),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": cuda_ms(library, reps=3, warmup=1),
+            "library": f"torch.max(q @ x.T, 1) over {sub}-row sub-windows, f32, TF32 off"}
+
+
 def ivf_flat_phase(seed: int, by_path: dict, out: Path):
     """``IVFFlatIndex`` with plain L2 (``spherical=False``) over 2,097,152 x
     1024 f32 rows drawn from the virtual reader: 4,096 lists trained on a
     262,144-row sample, filled, searched at nprobe 16, k 10. -> (phase
-    result, the kernel-1 row at its probe)."""
+    result, the kernel-1 rows at its probe and at its k-means' window)."""
     from abstracts_search_tpu_torch.index import FlatIndex, IVFFlatIndex
     from abstracts_search_tpu_torch.storage.virtual import (VirtualShardReader, VirtualSpec,
                                                             write_spec)
@@ -1824,9 +1882,12 @@ def ivf_flat_phase(seed: int, by_path: dict, out: Path):
                 "p50_ms": statistics.median(singles)})
     row = ivf_flat_probe_row(idx, q, nprobe)
     res["kernel_1_probe_f32"] = row
-    del idx, x
+    del x
+    km_row = plain_l2_kmeans_row(idx, reader.sample(IVFF["train_rows"], seed=seed))
+    res["kernel_1_plain_l2_kmeans"] = km_row
+    del idx
     release()
-    return res, row
+    return res, row, km_row
 
 
 # -- index artifacts ----------------------------------------------------------------
@@ -3476,19 +3537,28 @@ def main() -> int:
         libs = _build.build_all()
         # the bf16 top-k must run on tensor cores, and every ADC kernel
         # must stage by bulk async copies: count both in the SASS
-        hmma = sum(sass_count(text, "HMMA", "HGMMA")
-                   for text in sass_by_function(libs["topk"]._name).values())
+        topk_sass = sass_by_function(libs["topk"]._name)
+        hmma = sum(sass_count(text, "HMMA", "HGMMA") for text in topk_sass.values())
+        # kernel 1's k-1 scan (namespace kone) must multiply by wgmma
+        k1_hgmma = {fn: sass_count(text, "HGMMA") for fn, text in topk_sass.items()
+                    if "4kone" in fn}
         bulk = {name: {fn: sass_count(text, "UBLKCP")
                        for fn, text in sass_by_function(libs[name]._name).items()}
                 for name in ("adc_topk", "adc_scan")}
+        # registers and spills of kernel 1's k-1 and register-blocked f32 scans
+        ptxas = {fn: r for fn, r in _build.ptxas_report("topk").items()
+                 if "4kone" in fn or "4simt" in fn}
         emit({"phase": "build", "seconds": time.perf_counter() - t,
               "nvcc_seconds": _build.build_seconds, "libraries": sorted(libs),
-              "topk_tensor_core_instructions": hmma,
+              "topk_tensor_core_instructions": hmma, "topk_k1_scan_hgmma": k1_hgmma,
+              "topk_new_kernels_ptxas": ptxas,
               "bulk_copy_instructions": {
                   name: {"kernel_functions": len(c), "min_per_function": min(c.values(), default=0),
                          "total": sum(c.values())} for name, c in bulk.items()}})
         if hmma == 0:
             raise AssertionError("no HMMA/HGMMA instruction in the top-k library")
+        if not k1_hgmma or min(k1_hgmma.values()) == 0:
+            raise AssertionError(f"kernel 1's k-1 scan has no HGMMA in its SASS: {k1_hgmma}")
         unstaged = [fn for c in bulk.values() for fn, n in c.items() if n == 0]
         if unstaged or not all(bulk.values()):
             raise AssertionError(f"ADC kernel functions without a bulk copy (UBLKCP): "
@@ -3529,8 +3599,8 @@ def main() -> int:
         t = time.perf_counter()
         ivf_dir = build_root / "smoke_ivf_flat"
         try:
-            res, extra_rows["topk"]["ivf_flat_probe"] = ivf_flat_phase(args.seed, by_path,
-                                                                       ivf_dir)
+            res, extra_rows["topk"]["ivf_flat_probe"], \
+                extra_rows["topk"]["plain_l2_kmeans"] = ivf_flat_phase(args.seed, by_path, ivf_dir)
         finally:
             shutil.rmtree(ivf_dir, ignore_errors=True)
         emit({"phase": "ivf_flat", **res, "seconds": time.perf_counter() - t})

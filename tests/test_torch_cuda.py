@@ -338,10 +338,59 @@ def test_topk_kernel_at_k1_bit_for_bit(cuda, qn):
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
+def _ints_repeated(cuda, g, qn, n, d, dtype):
+    """Small-integer queries and 64 distinct small-integer rows repeated:
+    every sum is exact on any route, and ties are everywhere."""
+    q = torch.randint(-3, 4, (qn, d), device=cuda, generator=g).to(dtype)
+    x = torch.randint(-3, 4, (64, d), device=cuda, generator=g)[
+        torch.randint(0, 64, (n,), device=cuda, generator=g)].to(dtype)
+    return q, x
+
+
+@pytest.mark.parametrize("qn,d", [(1000, 64), (70_000, 64), (262_144, 64), (70_000, 1000)])
+def test_k1_scan_bit_for_bit(cuda, qn, d):
+    """The k-1 scan (2-block clusters, TMA multicast, running max in
+    registers) at Q 1,000, 70,000 and 262,144: n_valid 4,000 is no
+    multiple of the 256-row tile, and Q 1,000 and 70,000 leave the last
+    128-query tile partly full; d 1,000 has a ragged last 64-deep slice.
+    Values and rows (ties to the lowest) equal the plain version's bit for
+    bit, through the route."""
+    g = torch.Generator(device=cuda).manual_seed(qn + d)
+    q, x = _ints_repeated(cuda, g, qn, 4096, d, torch.bfloat16)
+    assert topk._launch_plan(qn, 4000, 1, torch.bfloat16, cuda.index or 0).cfg in topk._K1
+    before = topk.launches
+    kv, ki = topk.streaming_topk(q, x, 4000, 1, chunk=1024, impl="cuda")
+    assert topk.launches == before + 1
+    pv, pi = topk.streaming_topk(q, x, 4000, 1, chunk=1024, impl="torch")
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("qn,n,n_valid,d,k", [
+    (256, 4096, 4096, 1152, 16),       # the IVF-Flat probe's shape
+    (262_144, 4096, 4096, 1152, 1),    # plain-L2 k-means' window, one range
+    (300, 8192, 8000, 102, 10),        # d % 4 != 0: scalar staging
+    (100, 4096, 4000, 64, 1)])         # k 1 over several ranges: the second pass
+def test_register_blocked_f32_scan_bit_for_bit(cuda, qn, n, n_valid, d, k):
+    """The register-blocked f32 scan: small integers with repeated rows,
+    every f32 sum exact, so values and rows (ties to the lowest) equal the
+    plain version's bit for bit, through the route."""
+    g = torch.Generator(device=cuda).manual_seed(qn + k)
+    q, x = _ints_repeated(cuda, g, qn, n, d, torch.float32)
+    assert topk._launch_plan(qn, n_valid, k, torch.float32, cuda.index or 0,
+                             d % 4 == 0).cfg in topk._SIMT
+    before = topk.launches
+    kv, ki = topk.streaming_topk(q, x, n_valid, k, chunk=1024, impl="cuda")
+    assert topk.launches == before + 1
+    pv, pi = topk.streaming_topk(q, x, n_valid, k, chunk=1024, impl="torch")
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
 def test_plain_l2_kmeans_past_the_fma_grid_limit(cuda):
-    """Plain-L2 k-means rides the kernel's f32 FMA route, whose grid
-    holds at most 2,097,120 queries a call; fit_staged over 2,200,000
-    rows windows its calls and must assign as the plain route. Small
+    """Plain-L2 k-means rides the kernel's f32 route, whose grid holds at
+    most 65,535 query tiles a call (8,388,480 queries on the 128-query
+    register-blocked tile; 2,097,120 on the 32-query FMA tile it
+    replaced); fit_staged over 2,200,000 rows windows its calls and must
+    assign as the plain route. Small
     integers keep every score and the first update's sums exact, so the
     two routes' centroids must be equal bit for bit."""
     from abstracts_search_tpu_torch.index.kmeans import KMeans

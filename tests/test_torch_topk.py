@@ -229,3 +229,88 @@ def test_plan_gives_few_queries_the_128_query_tile(qn, k):
     query rows are masked."""
     p = _plan(qn, 65_536, k, torch.bfloat16, H100_SMS)
     assert p.cfg == min(_TC) and p.qb == qn and p.tn == _TC[p.cfg][1]
+
+
+# -- the k-1 scan for many bf16 queries and the register-blocked f32 scan --------
+
+from abstracts_search_tpu_torch.ops.topk import (  # noqa: E402
+    _FMA, _K1, _K1_MIN_Q, _SIMT, _smem)
+
+
+@pytest.mark.parametrize("qn", [131_072, 262_144])
+def test_plan_gives_the_build_shape_the_k1_scan(qn):
+    """The k-means assignment and the fill's coarse encode: exact mode at
+    k 1 over 65,536 bf16 centroids of 1,024 dims takes the k-1 scan, whose
+    ranges are the whole corpus (no second pass), on tensor cores."""
+    p = _plan(qn, 65_536, 1, torch.bfloat16, H100_SMS)
+    assert p.cfg in _K1 and p.tensor_cores
+    assert (p.qb, p.tn) == _K1[p.cfg] and p.n_ranges == 1 and p.range_rows >= 65_536
+    assert p.smem == _smem(p.cfg, p.qb, 1) <= _BLOCK_SMEM
+
+
+@pytest.mark.parametrize("qn", [1, 16, 128, _K1_MIN_Q - 1])
+def test_plan_keeps_the_wgmma_scan_below_the_k1_crossover(qn):
+    """The serve probe at nprobe 1 (Q <= 256) and every Q under the
+    crossover stay on the wgmma scan at k 1."""
+    p = _plan(qn, 65_536, 1, torch.bfloat16, H100_SMS)
+    assert p.cfg in _TC
+
+
+@pytest.mark.parametrize("kw", [{"aligned": False}, {"fast": True}], ids=["unaligned", "fast"])
+@pytest.mark.parametrize("qn", [_K1_MIN_Q, 131_072])
+def test_plan_keeps_the_wgmma_scan_for_rows_tma_cannot_copy_and_fast_mode(qn, kw):
+    """Rows that are not 16-byte aligned (d = 100: 200 bytes; d = 1,000 is
+    2,000 bytes, aligned, its last 64-deep slice zero-filled by the copy)
+    and fast mode keep the wgmma scan at any Q; k > 1 too."""
+    assert _plan(qn, 65_536, 1, torch.bfloat16, H100_SMS, **kw).cfg in _TC
+    assert _plan(qn, 65_536, 2, torch.bfloat16, H100_SMS).cfg in _TC
+
+
+@pytest.mark.parametrize("cfg,qb,k", [(6, 128, 1), (4, 64, 1), (4, 64, 16), (5, 128, 1),
+                                      (5, 128, 16), (4, 64, 200)])
+def test_smem_mirror_covers_the_new_configurations(cfg, qb, k):
+    """The Python mirror of topk_smem_bytes: the k-1 scan's ring of four
+    48 KiB stages and its barriers, whatever k; the register-blocked
+    scan's ring of four stages of 32-deep f32 rows (128 bytes), its
+    barriers and its lists."""
+    if cfg in _K1:
+        assert _smem(cfg, qb, k) == 1024 + 4 * (128 + 256) * 64 * 2 + 16 * 4
+    else:
+        qt, tn = _SIMT[cfg]
+        assert _smem(cfg, qb, k) == (1024 + 4 * (qt + tn) * 128 + 8 * 4 + 8 * qt * (k + 16)
+                                     + 4 * qt)
+    assert _smem(cfg, qb, k) <= _BLOCK_SMEM
+
+
+@pytest.mark.parametrize("qn,n_eff,k,cfg", [
+    (256, 4_096, 16, 4),        # the IVF-Flat probe: 64-query tiles
+    (262_144, 4_096, 1, 5),     # plain-L2 k-means' windows: 128-query tiles
+    (2_000_000, 256, 1, 5),
+    (9, 8_192, 40, 4)])
+def test_plan_gives_f32_the_register_blocked_scan(qn, n_eff, k, cfg):
+    """f32 plans at the IVF-Flat probe and the plain-L2 k-means shape take
+    the register-blocked scan on the CUDA cores (no tensor cores: true
+    f32); k 1 with many queries has one range, so no second pass."""
+    p = _plan(qn, n_eff, k, torch.float32, H100_SMS)
+    assert p.cfg == cfg and not p.tensor_cores and (p.qb, p.tn) == _SIMT[cfg]
+    if k == 1:
+        assert p.n_ranges == 1
+
+
+def test_plan_probe_ranges_fill_the_card_with_few_lists():
+    """The IVF-Flat probe's 4 query tiles x 32 ranges of one 128-row tile:
+    about one block per SM, and pass 2 merges 32 lists (64 before)."""
+    p = _plan(256, 4_096, 16, torch.float32, H100_SMS)
+    assert p.n_ranges == 32 and p.range_rows == 128
+    assert H100_SMS // 2 <= 4 * p.n_ranges <= H100_SMS
+
+
+@pytest.mark.parametrize("qn,k", [(1, 16), (8, 1), (8, 300), (40, 300), (300, 1024),
+                                  (1000, K_MAX_FMA)])
+def test_plan_keeps_the_8_query_fma_scan_for_few_queries_and_large_k(qn, k):
+    """Q <= 8, and a k whose lists the register-blocked tiles do not hold,
+    stay on the 8-query FMA scan (so every k it took is still taken)."""
+    p = _plan(qn, 65_536, k, torch.float32, H100_SMS)
+    assert p.cfg in _FMA and not p.tensor_cores and p.smem <= _BLOCK_SMEM
+    if qn > 8:
+        assert all(_smem(c, _SIMT[c][0], k) > _BLOCK_SMEM for c in _SIMT)
