@@ -20,12 +20,16 @@
 // Why the TPU design does not carry over: the Pallas grid walks the
 // corpus in order on one core with the running top-k in VMEM. Hopper runs
 // blocks in no order, so the corpus axis is split into ranges:
-//   pass 1: block (range, query tile) scores its range a tile at a time
-//     and keeps a sorted top-k list per query in shared memory; each range
-//     writes its lists to a [Q, ranges, k] scratch.
-//   pass 2 (topk_merge_kernel): one block per query merges the sorted
-//     range lists head by head (k rounds of a block-wide argmax over the
-//     heads) under the same order.
+//   pass 1: block (range, query tile) scores its range a tile at a time.
+//     The wgmma scan (bf16) appends each query's candidates -- scores at
+//     or above a proven lower bound on its k-th best -- to a buffer in
+//     device memory; the f32 scans keep a sorted top-k list per query in
+//     shared memory and write them to a [Q, ranges, k] scratch.
+//   pass 2: one block per query. topk_select_kernel selects the k best of
+//     the wgmma scan's candidates (a radix select and a rank by counts);
+//     topk_merge_kernel merges the f32 scans' sorted range lists head by
+//     head (k rounds of a block-wide argmax over the heads). Both under the
+//     same order.
 //
 // What bounds it: the corpus read, each byte once. At flat search's
 // 2,097,152 x 1024 bf16 (4.29 GB) that is 1.28 ms at 3.35 TB/s; at the
@@ -33,37 +37,41 @@
 // 128 flop per corpus byte, so reaching the bytes bound takes ~430
 // TFLOP/s of bf16: tensor cores only.
 //
-// Pass 1 for bf16 operands, against each limit of the f32-FMA scan it
-// replaced (f32 widening, element-wise staging, a 32-query tile, ranges
-// set by FMA occupancy):
+// Pass 1 for bf16 operands (the serve probe at every nprobe, flat search,
+// the tune oracle and sweep):
 //   - tile product on tensor cores. tc::wg::range_kernel: four warpgroups
 //     of wgmma.m64n128k16 (bf16 -> f32), both operands read straight from
 //     shared memory. x [N, D] row-major is already the K-major B operand.
 //     bf16 products are exact in f32; only the order of the sum differs
 //     from the plain version.
-//   - one corpus read for Q <= 256: a block holds 256 queries (x 128
-//     corpus rows per tile) or 128 (x 256), padded rows zero, so the
-//     corpus streams once per query tile; Q above 256 loops over tiles
-//     (grid y). A k whose lists do not fit 128 queries' shared memory
-//     gives the 128-query tile fewer queries per block (qb): the tile
-//     still multiplies 128 query rows, and those past the block's qb
-//     are masked. So does a call with few queries.
+//   - one corpus read for Q <= 256, at every k: a block holds 256 queries
+//     (x 128 corpus rows per tile) or 128 (x 256), padded rows zero, so
+//     the corpus streams once per query tile; Q above 256 loops over
+//     tiles (grid y). Per query a block keeps 16 bytes of shared memory
+//     (a count, its bound, a fold threshold), so k does not change the
+//     queries it serves: sorted lists of k entries a query beside the
+//     ring would cut them above k 16, leave the 128-row tile multiplying
+//     masked rows and read the corpus once per query tile.
 //   - staging without per-thread copies: one thread issues TMA tensor
-//     copies of 64-deep slices into a 3-stage ring (an mbarrier per stage
+//     copies of 64-deep slices into a 4-stage ring (an mbarrier per stage
 //     counts the bytes), 128-byte swizzled as wgmma reads them; rows and
-//     depth past the tensors' edges arrive as zeros. The next slices load
-//     while the current one multiplies, across tile boundaries. Rows that
-//     are not 16-byte aligned (d % 8 != 0) are staged by scalar loads
-//     into the same swizzle instead.
-//   - selection from registers: each score is masked (rows >= r_end,
-//     padded queries) and compared with its query's current k-th entry
-//     where the accumulator holds it; only scores that pass go to a 16-slot
-//     candidate buffer per query in shared memory. On a range's
-//     first tile, when the lists are empty, the four lanes that share a
-//     query bound its 16th-best score from below first. A full buffer is
-//     folded into the sorted list by ranks (two queries per warp for k <=
-//     16), and the scores that found it full retry against the raised
-//     threshold. After the first tiles almost nothing passes.
+//     depth past the tensors' edges arrive as zeros. Each slice's wgmma
+//     group stays in flight while the block frees the previous slice's
+//     stage, across tile boundaries. Rows that are not 16-byte aligned
+//     (d % 8 != 0) are staged by scalar loads into the same swizzle.
+//   - selection from registers (append_tile): each score is compared with
+//     its query's bound where the accumulator holds it. The bound is
+//     shared between blocks: every lane keeps the top 4 of its rows of the
+//     range and raises one of the query's ceil(k/4) bins in device memory
+//     to its 4th best by atomicMax; the least bin is a proven lower bound,
+//     read every tile (and, for k <= 16, the quad's own 4th bests bound a
+//     range's first tile). Scores at or above it go to the (query, range)
+//     buffer: 16-byte dense pieces when most of a quad's rows pass (a
+//     range's first tile above k 16), else appended one by one. A buffer
+//     past its level is folded to its k best in the kernel, whose k-th
+//     then also bounds that buffer. After the first tiles almost nothing
+//     passes. The accumulators are only read there: a write outside the
+//     wgmma chain made ptxas serialize every wgmma (C7518).
 //   - a grid sized to the card: one block per SM, and the wrapper's plan
 //     sets the ranges so that the grid is one wave.
 //
@@ -151,6 +159,9 @@ struct ExactSel {
   // order of prepared scores, and the lowest one
   static __device__ __forceinline__ bool below(float a, float b) { return a < b; }
   static __device__ __forceinline__ float bottom() { return -INFINITY; }
+  // the larger and the smaller of two prepared scores
+  static __device__ __forceinline__ float hi2(float a, float b) { return fmaxf(a, b); }
+  static __device__ __forceinline__ float lo2(float a, float b) { return fminf(a, b); }
   static __device__ __forceinline__ E made(float s, int row, const KeyParams&) {
     return {s, row};
   }
@@ -169,6 +180,24 @@ struct ExactSel {
   static __device__ __forceinline__ void out(E a, const KeyParams&, float* v, int* i) {
     *v = empty(a) ? -INFINITY : a.v;
     *i = empty(a) ? 0 : a.i;
+  }
+  // The wgmma scan's keys: an unsigned word ordered as the prepared scores
+  // (larger is better; every score's word is above 0), and a 64-bit key
+  // unique to the row, ordered as better(). -0 keys as +0: they compare equal.
+  static __device__ __forceinline__ uint32_t vkey(float s) {
+    const uint32_t u = __float_as_uint(s + 0.0f);
+    return u ^ ((uint32_t)((int)u >> 31) | 0x80000000u);
+  }
+  static __device__ __forceinline__ uint64_t key(uint32_t vk, int row, const KeyParams&) {
+    return ((uint64_t)vk << 32) | (uint32_t)~row;
+  }
+  // the prepared score of a word (bottom() for 0)
+  static __device__ __forceinline__ float unvkey(uint32_t vk) {
+    return vk == 0 ? -INFINITY : __uint_as_float((vk & 0x80000000u) ? vk ^ 0x80000000u : ~vk);
+  }
+  static __device__ __forceinline__ E from_key(uint64_t kk) {
+    const uint32_t vk = (uint32_t)(kk >> 32);
+    return {__uint_as_float((vk & 0x80000000u) ? vk ^ 0x80000000u : ~vk), (int)~(uint32_t)kk};
   }
 };
 
@@ -200,6 +229,12 @@ struct FastSel {
     return __float_as_int(a) < __float_as_int(b);
   }
   static __device__ __forceinline__ float bottom() { return __int_as_float(INT_MIN); }
+  static __device__ __forceinline__ float hi2(float a, float b) {
+    return __int_as_float(max(__float_as_int(a), __float_as_int(b)));
+  }
+  static __device__ __forceinline__ float lo2(float a, float b) {
+    return __int_as_float(min(__float_as_int(a), __float_as_int(b)));
+  }
   static __device__ __forceinline__ E made(float s, int row, const KeyParams& p) {
     return (long long)(((unsigned long long)(long long)__float_as_int(s) << 32) | lo(row, p));
   }
@@ -229,6 +264,20 @@ struct FastSel {
     const unsigned lo = (unsigned)(unsigned long long)a;
     const unsigned chunk = (unsigned)p.n_chunks - 1u - (lo >> p.chunk_log2);
     *i = (int)((chunk << p.chunk_log2) | (lo & ((1u << p.chunk_log2) - 1u)));
+  }
+  // The wgmma scan's keys (see ExactSel): the entry with its sign bit
+  // flipped, so that unsigned order is better()'s
+  static __device__ __forceinline__ uint32_t vkey(float s) {
+    return (uint32_t)__float_as_int(s) ^ 0x80000000u;
+  }
+  static __device__ __forceinline__ uint64_t key(uint32_t vk, int row, const KeyParams& p) {
+    return ((uint64_t)vk << 32) | lo(row, p);
+  }
+  static __device__ __forceinline__ float unvkey(uint32_t vk) {
+    return __int_as_float((int)(vk ^ 0x80000000u));
+  }
+  static __device__ __forceinline__ E from_key(uint64_t kk) {
+    return (long long)(kk ^ 0x8000000000000000ull);
   }
 };
 
@@ -702,29 +751,33 @@ __device__ __forceinline__ void finish(typename Sel::E* lst, typename Sel::E* cb
 // -- wgmma scan: 4 warpgroups, each an m64n128 tile (64 queries x 128
 // corpus rows) of wgmma.m64n128k16, both operands read straight from
 // 128-byte-swizzled shared memory; WM x WN warpgroups over queries x rows.
+// Selection keeps no per-query list in the block, so the queries a block
+// serves do not depend on k: per query it holds a count and two thresholds
+// (16 bytes), and the candidates go to device memory (see append_tile).
 
 namespace wg {
 
-template <int WM_, int WN_, int STAGES_, int CB_>
+template <int WM_, int WN_, int STAGES_>
 struct Cfg {
-  static constexpr int WM = WM_, WN = WN_, STAGES = STAGES_, CB = CB_;
-  static constexpr int THREADS = 128 * WM * WN, WARPS = THREADS / 32;
+  static constexpr int WM = WM_, WN = WN_, STAGES = STAGES_;
+  static constexpr int THREADS = 128 * WM * WN;
   static constexpr int QT = 64 * WM;    // query rows per tile (a block serves qb <= QT)
   static constexpr int TN = 128 * WN;   // corpus rows per tile
   static constexpr int STAGE_BYTES = (QT + TN) * DK * 2;
+  static constexpr int FOLD_PER_THREAD = 8;   // a fold holds cap <= 8 x THREADS keys
   static_assert(STAGE_BYTES % 1024 == 0, "swizzle atoms 1024-byte aligned");
   // 1 KiB to align the stages, the stages, 64 bytes of stage barriers,
-  // then per query a sorted list of k entries, CB candidate slots and a
-  // candidate count
-  static constexpr size_t smem(int qb, int k) {
-    return 1024 + (size_t)STAGES * STAGE_BYTES + 64 + 8 * (size_t)qb * (k + CB) +
-           4 * (size_t)qb;
-  }
+  // then per query its fold threshold (8 bytes), its candidate count and
+  // its bound from the shared bins (4 bytes each), 16 bytes of block
+  // scratch, and per thread the top 4 of each of its two query rows (32
+  // bytes: in registers they pushed the scan's into local memory)
+  static constexpr size_t SMEM =
+      1024 + (size_t)STAGES * STAGE_BYTES + 64 + 16 * (size_t)QT + 16 + 32 * (size_t)THREADS;
   static_assert(STAGES * 8 <= 64, "stage barriers");
 };
 
-using Mid = Cfg<2, 2, 3, 16>;     // 128 queries x 256 rows
-using Large = Cfg<4, 1, 3, 16>;   // 256 queries x 128 rows
+using Mid = Cfg<2, 2, 4>;     // 128 queries x 256 rows
+using Large = Cfg<4, 1, 4>;   // 256 queries x 128 rows
 
 // shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
 // 1024 bytes apart
@@ -769,6 +822,7 @@ __device__ __forceinline__ void fence_operands(float (&d)[1][16][4]) {
     for (int v = 0; v < 4; ++v) asm volatile("" : "+f"(d[0][j][v])::"memory");
 }
 
+// d += a b
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[1][16][4], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -801,25 +855,305 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[1][16][4], uint64_t 
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d = a b: a tile's first product; the old sums are not read, so nothing
+// keeps them live between tiles
+__device__ __forceinline__ void wgmma_m64n128k16_first(float (&d)[1][16][4], uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0][0][0]), "=f"(d[0][0][1]), "=f"(d[0][0][2]), "=f"(d[0][0][3]),
+        "=f"(d[0][1][0]), "=f"(d[0][1][1]), "=f"(d[0][1][2]), "=f"(d[0][1][3]),
+        "=f"(d[0][2][0]), "=f"(d[0][2][1]), "=f"(d[0][2][2]), "=f"(d[0][2][3]),
+        "=f"(d[0][3][0]), "=f"(d[0][3][1]), "=f"(d[0][3][2]), "=f"(d[0][3][3]),
+        "=f"(d[0][4][0]), "=f"(d[0][4][1]), "=f"(d[0][4][2]), "=f"(d[0][4][3]),
+        "=f"(d[0][5][0]), "=f"(d[0][5][1]), "=f"(d[0][5][2]), "=f"(d[0][5][3]),
+        "=f"(d[0][6][0]), "=f"(d[0][6][1]), "=f"(d[0][6][2]), "=f"(d[0][6][3]),
+        "=f"(d[0][7][0]), "=f"(d[0][7][1]), "=f"(d[0][7][2]), "=f"(d[0][7][3]),
+        "=f"(d[0][8][0]), "=f"(d[0][8][1]), "=f"(d[0][8][2]), "=f"(d[0][8][3]),
+        "=f"(d[0][9][0]), "=f"(d[0][9][1]), "=f"(d[0][9][2]), "=f"(d[0][9][3]),
+        "=f"(d[0][10][0]), "=f"(d[0][10][1]), "=f"(d[0][10][2]), "=f"(d[0][10][3]),
+        "=f"(d[0][11][0]), "=f"(d[0][11][1]), "=f"(d[0][11][2]), "=f"(d[0][11][3]),
+        "=f"(d[0][12][0]), "=f"(d[0][12][1]), "=f"(d[0][12][2]), "=f"(d[0][12][3]),
+        "=f"(d[0][13][0]), "=f"(d[0][13][1]), "=f"(d[0][13][2]), "=f"(d[0][13][3]),
+        "=f"(d[0][14][0]), "=f"(d[0][14][1]), "=f"(d[0][14][2]), "=f"(d[0][14][3]),
+        "=f"(d[0][15][0]), "=f"(d[0][15][1]), "=f"(d[0][15][2]), "=f"(d[0][15][3])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// Sorting networks on prepared scores, larger first: a pair, four values,
+// and the top 4 of two sorted 4-lists into the first (the elementwise
+// larger of one list and the other reversed holds the top 4 as a bitonic
+// sequence, which two rounds sort). No compare feeds the next score's, so
+// a lane's 32 scores keep the pipelines full where an insertion chain
+// waited on itself (~6 us a tile at the probe).
+template <typename Sel>
+__device__ __forceinline__ void order2(float& a, float& b) {
+  const float h = Sel::hi2(a, b), l = Sel::lo2(a, b);
+  a = h;
+  b = l;
+}
+template <typename Sel>
+__device__ __forceinline__ void sort4(float (&a)[4]) {
+  order2<Sel>(a[0], a[1]), order2<Sel>(a[2], a[3]), order2<Sel>(a[0], a[2]);
+  order2<Sel>(a[1], a[3]), order2<Sel>(a[1], a[2]);
+}
+template <typename Sel>
+__device__ __forceinline__ void top4_merge(float (&a)[4], const float (&b)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = Sel::hi2(a[i], b[3 - i]);
+  order2<Sel>(a[0], a[2]), order2<Sel>(a[1], a[3]), order2<Sel>(a[0], a[1]);
+  order2<Sel>(a[2], a[3]);
+}
+
+// One (query, range)'s candidate buffer holds more than its fold level:
+// keep its k best keys, moved to the buffer's front, and make the k-th its
+// threshold (only better keys enter from now on); with k or fewer keys
+// (the rest of its n slots zero: dense tiles' rows that did not pass) just
+// move them to the front. The k-th best is found bit by bit, from the top,
+// each bit by a block-wide count. The count stays even (a zero pads it),
+// so dense tiles start 16-byte aligned. Called by every thread for every
+// query whose buffer passed the level (rare: the shared bound keeps most
+// scores out), between tiles; out of line, so that its registers do not
+// weigh on the scan's.
+template <class C>
+__device__ __noinline__ void fold_full(uint64_t* __restrict__ b, int n, int k, uint64_t* thr,
+                                       int* cnt, int* scratch, int t) {
+  constexpr int FE = C::FOLD_PER_THREAD;
+  const int fe = (n + C::THREADS - 1) / C::THREADS;
+  uint64_t kv[FE];
+  int m = 0;   // keys (not zero)
+#pragma unroll
+  for (int i = 0; i < FE; ++i) {
+    const int e = t + i * C::THREADS;
+    kv[i] = i < fe && e < n ? __ldcg(reinterpret_cast<const unsigned long long*>(b) + e) : 0ull;
+    if (i < fe) m += __syncthreads_count(kv[i] != 0);
+  }
+  uint64_t th = 1;   // every key is at or above 1
+  if (m > k) {
+    th = 0;
+    for (int bit = 63; bit >= 0; --bit) {
+      const uint64_t c = th | (1ull << bit);
+      int above = 0;
+#pragma unroll
+      for (int i = 0; i < FE; ++i)
+        if (i < fe) above += __syncthreads_count(kv[i] >= c);
+      if (above >= k) th = c;
+    }
+  }
+  if (t == 0) *scratch = 0;
+  __syncthreads();   // every key read; the position counter zeroed
+#pragma unroll
+  for (int i = 0; i < FE; ++i)
+    if (i < fe && kv[i] >= th) b[atomicAdd(scratch, 1)] = kv[i];   // keys unique
+  if (t == 0) {
+    const int kept = min(m, k);
+    if (kept & 1) b[kept] = 0;
+    if (m > k) *thr = th;
+    *cnt = kept + (kept & 1);
+  }
+}
+
+// Offer the block's tile of scores to the candidate buffers. acc[0][j][v]
+// (an m16n8 fragment layout) holds query ql = qoff + g + 8(v >> 1) and row
+// r0 + roff + 8j + 2tg + (v & 1); it is only read (a write here would make
+// ptxas serialize the next tile's wgmma). A score passes when its word is
+// at or above its query's bound -- a proven lower bound on the query's
+// k-th best score -- and, after a fold, its key is above the buffer's
+// threshold. The bound is the larger of:
+//   - the shared bins: every lane keeps its own top 4 of the range (its
+//     rows are a source no other lane sees) and raises bin (source mod
+//     nbins) of the query to its 4th best by atomicMax; each of nbins >=
+//     k/4 bins holds a 4th best of a distinct source, so the least bin has
+//     at least k rows at or above it. Read every tile, after this tile's
+//     raises: once the ranges' first tiles are in, it stands near the k-th
+//     best of the corpus;
+//   - for k <= 16, the quad's floor: the 4 lanes that share the query hold
+//     4 rows each at or above their 4th best, so the ceil(k/4)-th largest
+//     of those bounds the k-th best.
+// "At or above": a score equal to the bound may still win on its row.
+// Passing keys go to the (query, range) buffer in device memory (the
+// wrapper's [Q, ranges, cap] scratch): when a quad's 128 rows pass in
+// numbers (a range's first tile above k 16), the quad writes all 128 slots
+// in 16-byte pieces, zero where a row did not pass; otherwise each lane
+// appends its own, an even count (a zero pads it). A tile adds at most TN
+// + 8 slots a query, and a buffer is folded once it holds more than cap -
+// TN - 8, so an append always finds room. Called by every thread.
+template <typename Sel, class C>
+__device__ __forceinline__ void append_tile(const float (&acc)[1][16][4], uint32_t* top,
+                                            int qoff, int roff, int r0, int r_end, int qlim,
+                                            int q0, int k, int cap, int nbins, int src,
+                                            uint64_t* thr, int* cnt, uint32_t* gb, int* scratch,
+                                            uint64_t* __restrict__ buf,
+                                            uint32_t* __restrict__ bins, const KeyParams& kp,
+                                            int t, int lane) {
+  constexpr int DENSE = 24;   // passing rows of a quad's 128 from which it writes them all
+  const int g = lane >> 2, tg = lane & 3;
+  const int rbase = r0 + roff + 2 * tg;
+  uint32_t rows = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) rows |= (uint32_t)(rbase + 8 * j + c < r_end) << (2 * j + c);
+  uint32_t fl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ql = qoff + g + 8 * h;
+    const uint32_t valid = ql < qlim ? rows : 0u;
+    // this thread's top 4 of the row over the range (words in shared
+    // memory), merged with the tile's by sorting networks, 8 scores a step
+    uint32_t* tp = top + (4 * h) * C::THREADS + t;
+    const uint32_t old3 = tp[3 * C::THREADS];
+    float r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r[i] = Sel::unvkey(tp[i * C::THREADS]);
+#pragma unroll
+    for (int j0 = 0; j0 < 16; j0 += 4) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = j0 + i;
+        a[i] = (valid >> (2 * j)) & 1 ? Sel::prep(acc[0][j][2 * h], kp) : Sel::bottom();
+        b[i] = (valid >> (2 * j + 1)) & 1 ? Sel::prep(acc[0][j][2 * h + 1], kp) : Sel::bottom();
+      }
+      sort4<Sel>(a);
+      sort4<Sel>(b);
+      top4_merge<Sel>(a, b);
+      top4_merge<Sel>(r, a);
+    }
+    const uint32_t w3 = Sel::vkey(r[3]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) tp[i * C::THREADS] = Sel::vkey(r[i]);
+    tp[3 * C::THREADS] = w3;
+    // a 4th best at or below the bound last read raises no bin (each is at
+    // or above it): most lanes after the first tiles, sparing the bins'
+    // atomics their contention
+    if (nbins > 0 && w3 > old3 && ql < qlim && w3 > gb[ql])
+      atomicMax(bins + (size_t)(q0 + ql) * nbins + src % nbins, w3);
+    // the quad's floor (k <= 16): the ceil(k/4)-th largest of its 4th bests
+    uint32_t a0 = w3, a1 = __shfl_xor_sync(FULL, w3, 1);
+    uint32_t a2 = __shfl_xor_sync(FULL, w3, 2), a3 = __shfl_xor_sync(FULL, a1, 2);
+    auto order = [](uint32_t& x, uint32_t& y) {
+      if (x < y) { const uint32_t z = x; x = y; y = z; }
+    };
+    order(a0, a1), order(a2, a3), order(a0, a2), order(a1, a3), order(a1, a2);
+    fl[h] = k > 16 ? 0u : k <= 4 ? a0 : k <= 8 ? a1 : k <= 12 ? a2 : a3;
+  }
+  if (nbins > 0) {   // the bound from the bins, TPQ adjacent threads a query
+    constexpr int TPQ = C::THREADS / C::QT;
+    const int ql = t / TPQ, part = t % TPQ;
+    uint32_t v = 0xffffffffu;
+    if (ql < qlim) {
+      const uint32_t* b = bins + (size_t)(q0 + ql) * nbins;
+      for (int i = part; i < nbins; i += TPQ) v = min(v, __ldcg(b + i));
+    }
+#pragma unroll
+    for (int o = 1; o < TPQ; o <<= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
+    if (part == 0 && ql < qlim) gb[ql] = max(gb[ql], v);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ql = qoff + g + 8 * h;
+    uint32_t pass = 0;
+    uint64_t* dst = buf;
+    if (ql < qlim) {
+      const float lim = Sel::unvkey(max(fl[h], gb[ql]));
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          pass |= (uint32_t)!Sel::below(Sel::prep(acc[0][j][2 * h + c], kp), lim) << (2 * j + c);
+      pass &= rows;
+      const uint64_t th = thr[ql];   // 0 until the buffer's first fold
+      if (th != 0 && pass) {   // after a fold, only keys above the buffer's k-th
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (Sel::key(Sel::vkey(Sel::prep(acc[0][j][2 * h + c], kp)), rbase + 8 * j + c,
+                         kp) <= th)
+              pass &= ~(1u << (2 * j + c));
+      }
+      dst += ((size_t)(q0 + ql) * gridDim.x + blockIdx.x) * cap;
+    }
+    int np = __popc(pass);   // the quad's passing rows (its lanes share ql)
+    np += __shfl_xor_sync(FULL, np, 1);
+    np += __shfl_xor_sync(FULL, np, 2);
+    if (np >= DENSE) {   // all 128 slots, 16 bytes a lane and column
+      int base = 0;
+      if (tg == 0) base = atomicAdd(&cnt[ql], 128);
+      base = __shfl_sync(0xfu << (lane & ~3), base, lane & ~3);   // the quad agrees
+      ulonglong2* d2 = reinterpret_cast<ulonglong2*>(dst + base + 2 * tg);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        ulonglong2 e;
+        e.x = (pass >> (2 * j)) & 1
+                  ? Sel::key(Sel::vkey(Sel::prep(acc[0][j][2 * h], kp)), rbase + 8 * j, kp)
+                  : 0ull;
+        e.y = (pass >> (2 * j + 1)) & 1
+                  ? Sel::key(Sel::vkey(Sel::prep(acc[0][j][2 * h + 1], kp)), rbase + 8 * j + 1,
+                             kp)
+                  : 0ull;
+        d2[4 * j] = e;
+      }
+    } else if (pass) {   // this lane's own, an even count
+      const int n = __popc(pass);
+      int pos = atomicAdd(&cnt[ql], n + (n & 1));
+      if (n & 1) dst[pos + n] = 0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if ((pass >> (2 * j + c)) & 1)
+            dst[pos++] = Sel::key(Sel::vkey(Sel::prep(acc[0][j][2 * h + c], kp)),
+                                  rbase + 8 * j + c, kp);
+    }
+  }
+  // buffers past their fold level get room for the next tile
+  const int level = cap - C::TN - 8;
+  if (!__syncthreads_or(t < qlim && cnt[t] > level)) return;
+  for (int ql = 0; ql < qlim; ++ql) {   // uniform: counts read after the barrier
+    if (cnt[ql] <= level) continue;
+    fold_full<C>(buf + ((size_t)(q0 + ql) * gridDim.x + blockIdx.x) * cap, cnt[ql], k, &thr[ql],
+                 &cnt[ql], scratch, t);
+    __syncthreads();
+  }
+}
+
 // TMA: both operands arrive by tensor copies (one thread issues them; a
 // barrier per stage counts the bytes), 128-byte swizzled as wgmma reads
 // them; rows and depth past the tensors' edges come back zero. Otherwise
-// (rows not 16-byte aligned) every thread stages by scalar loads.
+// (rows not 16-byte aligned) every thread stages by scalar loads. Each
+// 64-deep slice keeps its wgmma group in flight while the block agrees
+// that the previous slice's stage is free and refills it; a tile's first
+// slice overwrites the sums. grid (ranges, query tiles); buf [nq, ranges,
+// cap] candidate keys, cnt [nq, ranges] their counts, bins [nq, nbins]
+// (zeroed by the launcher; nbins 0: none).
 template <class C, typename Sel, bool TMA>
 __global__ void __launch_bounds__(C::THREADS, 1) range_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ x, int nq,
-    int n_eff, int d, int k, int qb, int range_rows, KeyParams kp,
-    typename Sel::E* __restrict__ cand, const __grid_constant__ CUtensorMap tmq,
-    const __grid_constant__ CUtensorMap tmx) {
-  using E = typename Sel::E;
+    int n_eff, int d, int k, int qb, int range_rows, KeyParams kp, int cap, int nbins,
+    uint64_t* __restrict__ buf, int* __restrict__ cnt_out, uint32_t* __restrict__ bins,
+    const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmx) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t sbase = (raw + 1023) & ~1023u;
   const uint32_t bars = sbase + C::STAGES * C::STAGE_BYTES;   // [STAGES] mbarriers
   unsigned char* tail = smem_raw + (sbase - raw) + (size_t)C::STAGES * C::STAGE_BYTES + 64;
-  E* lst = reinterpret_cast<E*>(tail);                            // [qb][k]
-  E* cbuf = lst + (size_t)qb * k;                                 // [qb][CB]
-  int* cnt = reinterpret_cast<int*>(cbuf + (size_t)qb * C::CB);  // [qb]
+  uint64_t* thr = reinterpret_cast<uint64_t*>(tail);          // [QT]
+  int* cnt = reinterpret_cast<int*>(thr + C::QT);             // [QT]
+  uint32_t* gb = reinterpret_cast<uint32_t*>(cnt + C::QT);    // [QT]
+  int* scratch = reinterpret_cast<int*>(gb + C::QT);          // [4]
+  uint32_t* top = reinterpret_cast<uint32_t*>(scratch + 4);   // [2][4][THREADS]
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int wgi = warp >> 2, wm = wgi / C::WN, wn = wgi % C::WN;
@@ -827,7 +1161,13 @@ __global__ void __launch_bounds__(C::THREADS, 1) range_kernel(
   const int qlim = min(qb, nq - q0);
   const int r_begin = blockIdx.x * range_rows;
   const int r_end = min(r_begin + range_rows, n_eff);
-  init_lists<Sel>(lst, cnt, qb, k, t, C::THREADS);
+  for (int e = t; e < C::QT; e += C::THREADS) {
+    thr[e] = 0;
+    cnt[e] = 0;
+    gb[e] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) top[i * C::THREADS + t] = 0;
 
   const int n_tiles = r_end > r_begin ? (r_end - r_begin + C::TN - 1) / C::TN : 0;
   const int ksteps = d > 0 ? (d + DK - 1) / DK : 1;
@@ -852,37 +1192,50 @@ __global__ void __launch_bounds__(C::THREADS, 1) range_kernel(
   for (int s = 0; s < C::STAGES - 1 && s < total; ++s)
     if (!TMA || t == 0) issue(s);
 
-  float acc[1][16][4] = {};
-  for (int step = 0; step < total; ++step) {
+  // a lane's rows across the range are one source of the shared bins
+  const int src = (blockIdx.x * C::WN + wn) * 4 + (lane & 3);
+  float acc[1][16][4];
+  int step = 0;
+  // one 64-deep slice: its stage landed, multiply (the tile's first slice
+  // overwrites the sums), keep the group in flight; the previous slice's
+  // group is done here, and after the barrier everywhere, so its stage
+  // takes the next copies
+  auto slice = [&](auto first) {
+    const int slot = step % C::STAGES;
     if (TMA) {
-      mbar_wait(bars + 8 * (step % C::STAGES), (step / C::STAGES) & 1);
-    } else {   // this thread's stores -> the async proxy wgmma reads through
+      mbar_wait(bars + 8 * slot, (step / C::STAGES) & 1);
+    } else {   // every thread's stores -> the async proxy wgmma reads through
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
     }
-    __syncthreads();   // slice `step` landed; slice step-1's wgmma done everywhere
-    const uint32_t st = sbase + (step % C::STAGES) * C::STAGE_BYTES;
+    const uint32_t st = sbase + slot * C::STAGE_BYTES;
     const uint64_t da = desc(st + wm * 64 * DK * 2);
     const uint64_t db = desc(st + (C::QT + wn * 128) * DK * 2);
-    fence_operands(acc);
+    if constexpr (!decltype(first)::value) fence_operands(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    if constexpr (decltype(first)::value) wgmma_m64n128k16_first(acc, da, db);
+    else wgmma_m64n128k16(acc, da, db);
 #pragma unroll
-    for (int kk = 0; kk < DK / 16; ++kk)   // 32 bytes along each swizzled row
+    for (int kk = 1; kk < DK / 16; ++kk)   // 32 bytes along each swizzled row
       wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk);
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    // while the tensor cores run: the stage slice step-1 used
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    __syncthreads();
     if (step + C::STAGES - 1 < total && (!TMA || t == 0)) issue(step + C::STAGES - 1);
+    ++step;
+  };
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    slice(std::true_type{});
+    for (int ks = 1; ks < ksteps; ++ks) slice(std::false_type{});
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_operands(acc);
-    if (step % ksteps != ksteps - 1) continue;
-    select_tile<Sel, 1, 16, C::WARPS, C::CB>(acc, wm * 64 + (warp & 3) * 16, wn * 128,
-                                             r_begin + (step / ksteps) * C::TN, r_end, qlim,
-                                             k, lst, cbuf, cnt, kp, warp, lane);
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[0][j][v] = 0.f;
+    append_tile<Sel, C>(acc, top, wm * 64 + (warp & 3) * 16, wn * 128,
+                        r_begin + tile * C::TN, r_end, qlim, q0, k, cap, nbins, src, thr, cnt, gb,
+                        scratch, buf, bins, kp, t, lane);
   }
-  finish<Sel, C::WARPS, C::CB>(lst, cbuf, cnt, q0, qlim, k, t, C::THREADS, kp, cand);
+  __syncthreads();
+  for (int ql = t; ql < qlim; ql += C::THREADS)
+    cnt_out[(size_t)(q0 + ql) * gridDim.x + blockIdx.x] = cnt[ql];
 }
 
 }  // namespace wg
@@ -1388,6 +1741,194 @@ __global__ void __launch_bounds__(MERGE_THREADS) topk_merge_kernel(
   }
 }
 
+// The wgmma scan's second pass, one block per query: the k best of the
+// candidates every range left in device memory (zero keys are empty
+// slots). The bins give the final bound (a proven lower bound on the k-th
+// best score, see append_tile), and the candidates at or above it are
+// gathered into shared memory. A few (at most SEL_THREADS) are ranked at
+// once: each thread counts the keys above its own and writes it at that
+// place when it is below k. More: their k-th largest key is found by a
+// radix select (8-bit digits, most significant first), and the k keys at
+// or above it are ranked the same way, or sorted by a bitonic network
+// when k is above SEL_THREADS. When more than SEL_SMAX candidates reach
+// the bound (many equal scores), the radix select reads them from device
+// memory instead.
+constexpr int SEL_THREADS = 512;
+constexpr int SEL_SMAX = 4096;   // candidates held in shared memory
+
+template <typename Sel>
+__device__ __forceinline__ void put_key(uint64_t kk, const KeyParams& kp, float* v, int* i) {
+  Sel::out(kk ? Sel::from_key(kk) : Sel::none(), kp, v, i);
+}
+
+// Write keys[0, n) (unique; n at most SEL_THREADS) to out[0, k) in
+// descending order, empty slots past n: thread i ranks key i by counting.
+template <typename Sel>
+__device__ __forceinline__ void rank_out(const uint64_t* keys, int n, int k, const KeyParams& kp,
+                                         float* out_v, int* out_i, int t) {
+  if (t < n) {
+    const uint64_t mine = keys[t];
+    int r = 0;
+    for (int j = 0; j < n; ++j) r += keys[j] > mine;
+    if (r < k) put_key<Sel>(mine, kp, out_v + r, out_i + r);
+  }
+  for (int j = n + t; j < k; j += SEL_THREADS) put_key<Sel>(0, kp, out_v + j, out_i + j);
+}
+
+template <typename Sel>
+__global__ void __launch_bounds__(SEL_THREADS) topk_select_kernel(
+    const uint64_t* __restrict__ buf, const int* __restrict__ cnt,
+    const uint32_t* __restrict__ bins, int n_ranges, int cap, int k, int kp2, int nbins,
+    KeyParams kp, float* __restrict__ out_v, int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char sel_raw[];
+  uint64_t* s = reinterpret_cast<uint64_t*>(sel_raw);   // [SEL_SMAX] candidates
+  uint64_t* w = s + SEL_SMAX;                            // [kp2] the k best
+  int* pre = reinterpret_cast<int*>(w + kp2);            // [n_ranges + 1] offsets
+  __shared__ int hist[256], wsum[SEL_THREADS / 32];
+  __shared__ int s_n, s_kk;
+  __shared__ uint32_t s_v;
+  __shared__ uint64_t s_prefix;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const size_t qr = (size_t)blockIdx.x * n_ranges;
+  float* ov = out_v + (size_t)blockIdx.x * k;
+  int* oi = out_i + (size_t)blockIdx.x * k;
+  if (warp == 0) {   // the final bound: the least bin
+    uint32_t v = 0xffffffffu;
+    for (int b = lane; b < nbins; b += 32) v = min(v, bins[(size_t)blockIdx.x * nbins + b]);
+#pragma unroll
+    for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
+    if (lane == 0) s_v = nbins > 0 ? v : 0u;
+  }
+  // the ranges' counts -> offsets (n_ranges <= SEL_THREADS): a scan in
+  // each warp, then over the warps' sums
+  int c = t < n_ranges ? cnt[qr + t] : 0, inc = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) wsum[warp] = inc;
+  if (t == 0) s_n = 0;
+  __syncthreads();
+  int before = 0;
+  for (int i = 0; i < warp; ++i) before += wsum[i];
+  if (t < n_ranges) pre[t + 1] = before + inc;
+  if (t == 0) pre[0] = 0;
+  __syncthreads();
+  const int total = pre[n_ranges];
+  const uint32_t bound = s_v;
+  // candidate e of the query: range r's entry e - pre[r]
+  auto entry = [&](int e) {
+    int lo = 0, hi = n_ranges;   // pre[lo] <= e < pre[hi]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (pre[mid] <= e) lo = mid;
+      else hi = mid;
+    }
+    return buf[(qr + lo) * cap + (e - pre[lo])];
+  };
+  constexpr int UNROLL = 4;   // loads in flight a thread
+  for (int e0 = t; e0 < total; e0 += UNROLL * SEL_THREADS) {
+    uint64_t kk[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int e = e0 + u * SEL_THREADS;
+      kk[u] = e < total ? entry(e) : 0ull;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (kk[u] != 0 && (uint32_t)(kk[u] >> 32) >= bound) {   // zero: an empty slot
+        const int p = atomicAdd(&s_n, 1);
+        if (p < SEL_SMAX) s[p] = kk[u];
+      }
+  }
+  __syncthreads();
+  const int n = s_n;
+  if (n <= SEL_THREADS) {
+    rank_out<Sel>(s, n, k, kp, ov, oi, t);
+    return;
+  }
+  const bool held = n <= SEL_SMAX;
+  __syncthreads();   // n read everywhere before s_n is reused
+  // every candidate at or above the bound, from shared or device memory
+  auto visit = [&](auto&& f) {
+    if (held) {
+      for (int i = t; i < n; i += SEL_THREADS) f(s[i]);
+    } else {
+      for (int e = t; e < total; e += SEL_THREADS) {
+        const uint64_t kk = entry(e);
+        if (kk != 0 && (uint32_t)(kk >> 32) >= bound) f(kk);
+      }
+    }
+  };
+  uint64_t th = 0;   // the k-th largest key; 0 (below every key) when n <= k
+  if (n > k) {
+    int rank = k;   // th is the rank-th largest key matching the prefix
+    for (int shift = 56; shift >= 0; shift -= 8) {
+      for (int i = t; i < 256; i += SEL_THREADS) hist[i] = 0;
+      __syncthreads();
+      const uint64_t hm = shift == 56 ? 0ull : ~0ull << (shift + 8);
+      visit([&](uint64_t kk) {
+        if ((kk & hm) == th) atomicAdd(&hist[(kk >> shift) & 255], 1);
+      });
+      __syncthreads();
+      if (warp == 0) {   // the digit holding the rank-th largest
+        int h[8], sum = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          h[i] = hist[lane * 8 + i];
+          sum += h[i];
+        }
+        int suf = sum;   // counts in lanes >= this one
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_down_sync(FULL, suf, o);
+          if (lane + o < 32) suf += y;
+        }
+        const unsigned ge = __ballot_sync(FULL, suf >= rank);
+        if (lane == 31 - __clz(ge)) {
+          int above = suf - sum;
+          for (int i = 7; i >= 0; --i) {
+            if (above + h[i] >= rank) {
+              s_prefix = th | ((uint64_t)(lane * 8 + i) << shift);
+              s_kk = rank - above;
+              break;
+            }
+            above += h[i];
+          }
+        }
+      }
+      __syncthreads();
+      th = s_prefix;
+      rank = s_kk;
+    }
+  }
+  for (int i = t; i < kp2; i += SEL_THREADS) w[i] = 0;
+  if (t == 0) s_n = 0;
+  __syncthreads();
+  visit([&](uint64_t kk) {
+    if (kk >= th) w[atomicAdd(&s_n, 1)] = kk;   // keys unique: min(n, k) of them
+  });
+  __syncthreads();
+  if (k <= SEL_THREADS) {
+    rank_out<Sel>(w, min(n, k), k, kp, ov, oi, t);
+    return;
+  }
+  for (int size = 2; size <= kp2; size <<= 1)   // bitonic sort, descending
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = t; i < kp2 / 2; i += SEL_THREADS) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const uint64_t a = w[lo], b = w[hi];
+        if ((a < b) == ((lo & size) == 0)) {
+          w[lo] = b;
+          w[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  for (int j = t; j < k; j += SEL_THREADS) put_key<Sel>(w[j], kp, ov + j, oi + j);
+}
+
 // Pass-1 configurations, numbered as the wrapper's plan names them (0, the
 // 32-query FMA scan, was replaced by SIMT64 and SIMT128).
 enum { FMA8 = 1, TC_MID = 2, TC_LARGE = 3, SIMT64 = 4, SIMT128 = 5, TC_K1 = 6 };
@@ -1397,8 +1938,8 @@ constexpr int SIMT64_WN = 8, SIMT128_WN = 4;
 size_t smem_bytes(int cfg, int qb, int k) {
   switch (cfg) {
     case FMA8: return f32scan::Tile<8, 128>::smem(k);
-    case TC_MID: return tc::wg::Mid::smem(qb, k);
-    case TC_LARGE: return tc::wg::Large::smem(qb, k);
+    case TC_MID: return tc::wg::Mid::SMEM;
+    case TC_LARGE: return tc::wg::Large::SMEM;
     case SIMT64: return simt::Cfg<64, SIMT64_WN>::smem(k);
     case SIMT128: return simt::Cfg<128, SIMT128_WN>::smem(k);
     case TC_K1: return tc::kone::SMEM;
@@ -1421,9 +1962,9 @@ cudaError_t launch_fma(const void* q, const void* x, int nq, int n_eff, int d, i
   return cudaGetLastError();
 }
 
-template <typename Sel>
 using WgKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, int, int, int, int, int,
-                          int, KeyParams, typename Sel::E*, const CUtensorMap, const CUtensorMap);
+                          int, KeyParams, int, int, uint64_t*, int*, uint32_t*, const CUtensorMap,
+                          const CUtensorMap);
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1462,22 +2003,39 @@ bool tensor_map(CUtensorMap* m, const void* base, int rows, int d, int box_rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The wgmma scan (pass 1, candidates into buf/cnt, bins zeroed first) and
+// its select pass
 template <class C, typename Sel>
 cudaError_t launch_wg(int vec, const void* q, const void* x, int nq, int n_eff, int d, int k,
-                      int qb, int n_ranges, int range_rows, KeyParams kp,
-                      typename Sel::E* cand, cudaStream_t st) {
+                      int qb, int n_ranges, int range_rows, KeyParams kp, int cap, int nbins,
+                      uint64_t* buf, int* cnt, uint32_t* bins, void* out_v, void* out_i,
+                      cudaStream_t st) {
   CUtensorMap tmq{}, tmx{};
   if (vec && !(tensor_map(&tmq, q, nq, d, C::QT) && tensor_map(&tmx, x, n_eff, d, C::TN)))
     return cudaErrorInvalidValue;
-  const WgKernel<Sel> kern = vec ? tc::wg::range_kernel<C, Sel, true>
-                                 : tc::wg::range_kernel<C, Sel, false>;
-  const size_t smem = C::smem(qb, k);
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  if (cap < k + C::TN + 8 || cap > C::FOLD_PER_THREAD * C::THREADS || n_ranges > SEL_THREADS)
+    return cudaErrorInvalidValue;
+  cudaError_t e;
+  if (nbins > 0 && (e = cudaMemsetAsync(bins, 0, sizeof(uint32_t) * (size_t)nq * nbins, st)) !=
+                       cudaSuccess)
+    return e;
+  const WgKernel kern = vec ? tc::wg::range_kernel<C, Sel, true>
+                            : tc::wg::range_kernel<C, Sel, false>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(n_ranges, (nq + qb - 1) / qb), C::THREADS, smem, st>>>(
+  kern<<<dim3(n_ranges, (nq + qb - 1) / qb), C::THREADS, C::SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(x), nq, n_eff,
-      d, k, qb, range_rows, kp, cand, tmq, tmx);
+      d, k, qb, range_rows, kp, cap, nbins, buf, cnt, bins, tmq, tmx);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  int kp2 = 1;
+  while (kp2 < k) kp2 <<= 1;
+  const size_t smem2 = 8 * ((size_t)SEL_SMAX + kp2) + 4 * ((size_t)n_ranges + 1);
+  e = cudaFuncSetAttribute(topk_select_kernel<Sel>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem2);
+  if (e != cudaSuccess) return e;
+  topk_select_kernel<Sel><<<nq, SEL_THREADS, smem2, st>>>(
+      buf, cnt, bins, n_ranges, cap, k, kp2, nbins, kp, static_cast<float*>(out_v),
+      static_cast<int*>(out_i));
   return cudaGetLastError();
 }
 
@@ -1522,8 +2080,8 @@ cudaError_t launch_kone(const void* q, const void* x, int nq, int n_eff, int d, 
 
 template <typename Sel>
 int launch(const void* q, const void* x, int cfg, int vec, int nq, int n_eff, int d, int k,
-           int qb, int n_ranges, int range_rows, KeyParams kp, void* cand_p, void* out_v,
-           void* out_i, cudaStream_t st) {
+           int qb, int n_ranges, int range_rows, KeyParams kp, int cap, int nbins, void* cand_p,
+           void* cnt, void* bins, void* out_v, void* out_i, cudaStream_t st) {
   using E = typename Sel::E;
   E* cand = static_cast<E*>(cand_p);
   cudaError_t e;
@@ -1536,14 +2094,16 @@ int launch(const void* q, const void* x, int cfg, int vec, int nq, int n_eff, in
     case FMA8:
       e = launch_fma<Sel, 8, 128>(q, x, nq, n_eff, d, k, n_ranges, range_rows, kp, cand, st);
       break;
-    case TC_MID:
-      e = launch_wg<tc::wg::Mid, Sel>(vec, q, x, nq, n_eff, d, k, qb, n_ranges, range_rows, kp,
-                                      cand, st);
-      break;
+    case TC_MID:   // the wgmma scan runs its own select pass
+      return (int)launch_wg<tc::wg::Mid, Sel>(
+          vec, q, x, nq, n_eff, d, k, qb, n_ranges, range_rows, kp, cap, nbins,
+          static_cast<uint64_t*>(cand_p), static_cast<int*>(cnt), static_cast<uint32_t*>(bins),
+          out_v, out_i, st);
     case TC_LARGE:
-      e = launch_wg<tc::wg::Large, Sel>(vec, q, x, nq, n_eff, d, k, qb, n_ranges, range_rows,
-                                        kp, cand, st);
-      break;
+      return (int)launch_wg<tc::wg::Large, Sel>(
+          vec, q, x, nq, n_eff, d, k, qb, n_ranges, range_rows, kp, cap, nbins,
+          static_cast<uint64_t*>(cand_p), static_cast<int*>(cnt), static_cast<uint32_t*>(bins),
+          out_v, out_i, st);
     case SIMT64:
       e = launch_simt<Sel, 64, SIMT64_WN>(vec, q, x, nq, n_eff, d, k, n_ranges, range_rows, kp,
                                           first, out_v, out_i, st);
@@ -1577,8 +2137,8 @@ int launch(const void* q, const void* x, int cfg, int vec, int nq, int n_eff, in
 extern "C" {
 
 // Shared memory pass 1 needs in configuration cfg (FMA8, SIMT* for f32
-// operands, TC_* for bf16) with qb queries per block (TC_MID, TC_LARGE) at
-// this k.
+// operands, TC_* for bf16) at this k (qb is not read: TC_* hold per query
+// 16 bytes, whatever k and however many queries they serve).
 size_t topk_smem_bytes(int cfg, int qb, int k) { return smem_bytes(cfg, qb, k); }
 
 // q [nq, d], x [>= n_eff, d]: f32 for cfg FMA8/SIMT*, bf16 for cfg TC_*;
@@ -1586,19 +2146,23 @@ size_t topk_smem_bytes(int cfg, int qb, int k) { return smem_bytes(cfg, qb, k); 
 // TC_LARGE; the others take their tile's). vec = 1: rows and bases 16-byte
 // aligned, so TC_* stage by TMA and SIMT* by cp.async; TC_K1 needs it.
 // fast = 1 selects fast mode with lane_bits, chunk_log2 and n_chunks
-// (ignored in exact mode; TC_K1 refuses it). cand: [nq, n_ranges, k]
-// 8-byte scratch; out_v/out_i: [nq, k]. Returns cudaGetLastError().
+// (ignored in exact mode; TC_K1 refuses it). cand: 8-byte scratch, [nq,
+// n_ranges, k] for FMA8/SIMT*/TC_K1 and [nq, n_ranges, cap] candidate keys
+// for TC_* (cap > k: slots per query and range), whose counts go to cnt
+// [nq, n_ranges] (int32) and whose shared bins are bins [nq, nbins]
+// (uint32, zeroed here; nbins 0: none); out_v/out_i: [nq, k]. Returns
+// cudaGetLastError().
 int topk_launch(const void* q, const void* x, int cfg, int vec, int nq, int n_eff, int d,
                 int k, int qb, int n_ranges, int range_rows, int fast, int lane_bits,
-                int chunk_log2, int n_chunks, void* cand, void* out_v, void* out_i,
-                void* stream) {
+                int chunk_log2, int n_chunks, int cap, int nbins, void* cand, void* cnt,
+                void* bins, void* out_v, void* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const KeyParams kp{lane_bits, chunk_log2, n_chunks};
   if (fast)
-    return launch<FastSel>(q, x, cfg, vec, nq, n_eff, d, k, qb, n_ranges, range_rows, kp,
-                           cand, out_v, out_i, st);
-  return launch<ExactSel>(q, x, cfg, vec, nq, n_eff, d, k, qb, n_ranges, range_rows, kp,
-                          cand, out_v, out_i, st);
+    return launch<FastSel>(q, x, cfg, vec, nq, n_eff, d, k, qb, n_ranges, range_rows, kp, cap,
+                           nbins, cand, cnt, bins, out_v, out_i, st);
+  return launch<ExactSel>(q, x, cfg, vec, nq, n_eff, d, k, qb, n_ranges, range_rows, kp, cap,
+                          nbins, cand, cnt, bins, out_v, out_i, st);
 }
 
 }  // extern "C"

@@ -23,21 +23,24 @@ Two implementations behind ``impl``:
 
 - ``"cuda"``: the hand-written kernels in ``csrc/topk.cu``, templated on
   the mode. A first pass splits the corpus into ranges, one block per
-  (range, query tile), each keeping a sorted top-k list per query in
-  shared memory; a second pass merges the range lists. For bf16
-  operands the first pass multiplies on tensor cores (``wgmma`` fed by
-  TMA copies), holds up to 256 queries per block so the corpus is read
-  once, and selects straight from the accumulator registers: only
-  scores that beat their query's current k-th entry reach shared
-  memory. Exact mode at k 1 over many bf16 queries (k-means assignment,
-  the fill's coarse encode) takes a k-1 scan instead: 2-block clusters
-  sharing each centroid tile by TMA multicast, a producer warpgroup, and
-  each query's running (max, lowest row) kept in registers, written
-  once with no second pass. f32 operands take a register-blocked f32
-  scan on the CUDA cores (8 x 8 sums a thread, TMA staging, the
-  same selection from registers), since TF32 would break their
-  true-f32 contract; Q <= 8 and very large k keep the FMA scan.
-  ``_plan`` chooses the route, the queries per block and the ranges;
+  (range, query tile); a second pass combines the ranges' results. For
+  bf16 operands the first pass multiplies on tensor cores (``wgmma`` fed
+  by TMA copies), holds up to 256 queries per block whatever k, so the
+  corpus is read once, and selects straight from the accumulator
+  registers: per query only a bound (a proven lower bound on its k-th
+  best score, shared between blocks through bins raised by atomicMax)
+  and a count stay in shared memory, and scores at or above the bound go
+  to a candidate buffer in device memory, from which the second pass
+  selects the k best. Exact mode at k 1 over many bf16 queries (k-means
+  assignment, the fill's coarse encode) takes a k-1 scan instead: 2-block
+  clusters sharing each centroid tile by TMA multicast, a producer
+  warpgroup, and each query's running (max, lowest row) kept in
+  registers, written once with no second pass. f32 operands take a
+  register-blocked f32 scan on the CUDA cores (8 x 8 sums a thread, TMA
+  staging, sorted per-query lists in shared memory), since TF32 would
+  break their true-f32 contract; Q <= 8 and very large k keep the FMA
+  scan. ``_plan`` chooses the route, the queries per block and the
+  ranges;
 - ``"torch"``: the plain version, a chunked scan with a running [Q, k]
   result: ``_topk_torch`` (twin of the JAX package's ``_topk_xla``) and
   ``_topk_torch_fast`` (twin of ``_topk_xla_fast``).
@@ -132,8 +135,7 @@ def _lib():
     lib = _build.library("topk")
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.topk_launch.argtypes = [vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, i, vp, vp,
-                                    vp, vp]
+        lib.topk_launch.argtypes = [vp, vp] + [i] * 15 + [vp] * 6
         lib.topk_launch.restype = i
         lib.topk_smem_bytes.argtypes = [i, i, i]
         lib.topk_smem_bytes.restype = ctypes.c_size_t
@@ -158,9 +160,12 @@ _FMA_DK = 32
 _TC = {2: (128, 256), 3: (256, 128)}
 _K1 = {6: (128, 256)}
 _K1_STAGES = 4
-# the wgmma scan's ring (stages of 64-deep bf16 slices) and candidate
-# slots per query
-_TC_STAGES, _TC_DK, _TC_CB = 3, 64, 16
+# the wgmma scan's ring (stages of 64-deep bf16 slices), the keys one fold
+# holds (8 a thread of its 512), and the device memory its candidate
+# buffers may take (fewer ranges past it)
+_TC_STAGES, _TC_DK, _TC_THREADS = 4, 64, 512
+_TC_FOLD_MAX = 8 * _TC_THREADS
+_TC_SCRATCH = 512 << 20
 # bf16 queries from which exact mode at k 1 takes the k-1 scan. On an H100
 # it was faster at every Q measured, 256 to 32,768 (tools/topk_ab.py
 # --crossover); Q <= 256, the serve probe at nprobe 1, stays on the wgmma
@@ -175,6 +180,8 @@ class Plan(NamedTuple):
     n_ranges: int        # corpus ranges: the ranges' grid axis of the first pass
     range_rows: int      # rows per range, a multiple of ``tn``
     smem: int            # shared memory bytes per block
+    cap: int = 0         # wgmma scan: candidate slots per (query, range)
+    nbins: int = 0       # wgmma scan: shared bins per query (0: none)
 
     @property
     def tensor_cores(self) -> bool:
@@ -194,10 +201,10 @@ def _smem(cfg: int, qb: int, k: int) -> int:
         qt, tn = _K1[cfg]
         return 1024 + _K1_STAGES * (qt + tn) * _TC_DK * 2 + 16 * _K1_STAGES
     # 1 KiB to align the ring, the ring, 64 bytes of stage barriers; per
-    # query a list of k 8-byte entries, the candidate slots and a count
+    # query of the tile a threshold, a count and a bound (16 bytes), whatever
+    # k; 16 bytes of block scratch; per thread two top-4 lists (32 bytes)
     qt, tn = _TC[cfg]
-    ring = _TC_STAGES * (qt + tn) * _TC_DK * 2
-    return 1024 + ring + 64 + 8 * qb * (k + _TC_CB) + 4 * qb
+    return 1024 + _TC_STAGES * (qt + tn) * _TC_DK * 2 + 64 + 16 * qt + 16 + 32 * _TC_THREADS
 
 
 def _plan(qn: int, n_eff: int, k: int, dtype, sms: int, *, aligned: bool = True,
@@ -210,11 +217,17 @@ def _plan(qn: int, n_eff: int, k: int, dtype, sms: int, *, aligned: bool = True,
     bf16 operands in exact mode at k 1 with 16-byte rows (``aligned``) and
     at least ``_K1_MIN_Q`` queries take the k-1 scan (128 queries a block).
     Other bf16 calls take the wgmma scan with the smallest query tile that
-    holds all ``qn`` queries (128 or 256), so the corpus is read once; a k
-    whose lists do not fit moves to the 128-query tile, which then serves
-    fewer queries per block, halving down to 1. The ranges fill one wave
-    of the card's ``sms`` SMs, tile-aligned. Raises ValueError for a k no
-    configuration holds."""
+    holds all ``qn`` queries (128 or 256), so Q <= 256 reads the corpus
+    once at every k: its blocks keep no per-query list, so k does not
+    change the queries a block serves. Its candidates take ``cap`` = 2k +
+    2 (rows per tile) slots per query and range in device memory, at most
+    ``_TC_FOLD_MAX`` and at least k + (rows per tile) + 8 (a buffer past
+    cap - (rows per tile) - 8 is folded to its k best), and ``nbins`` =
+    ceil(k / 4) shared bins per query when the lanes of all ranges (4 per
+    warpgroup column) are that many sources, else none. The ranges fill
+    one wave of the card's ``sms`` SMs, tile-aligned, and are fewer when
+    the candidate buffers would pass ``_TC_SCRATCH`` bytes. Raises
+    ValueError for a k no configuration holds."""
     if dtype == torch.float32:
         cfg = 1
         if qn > 8:
@@ -229,28 +242,27 @@ def _plan(qn: int, n_eff: int, k: int, dtype, sms: int, *, aligned: bool = True,
             qb = _K1[cfg][0]
         else:
             # configurations are numbered by query tile; take the first that
-            # holds every query, then the 128-query tile with fewer queries
-            # per block while the lists do not fit
+            # holds every query
             cfg = min((c for c in _TC if _TC[c][0] >= qn), default=max(_TC))
             qb = min(_TC[cfg][0], qn)
-            if _smem(cfg, qb, k) > _BLOCK_SMEM:
-                cfg = min(_TC)
-                qb = min(_TC[cfg][0], qn)
-                while qb > 1 and _smem(cfg, qb, k) > _BLOCK_SMEM:
-                    qb //= 2
         tn, per_sm = (_K1[cfg] if cfg in _K1 else _TC[cfg])[1], 1
     else:
         raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
     smem = _smem(cfg, qb, k)
-    if smem > _BLOCK_SMEM:
+    cap = min(2 * k + 2 * tn, _TC_FOLD_MAX) if cfg in _TC else 0
+    if smem > _BLOCK_SMEM or cap and cap < k + tn + 8:
         raise ValueError(f"k={k} needs more shared memory than a block has")
     q_tiles = -(-qn // qb)
     want = max(1, sms * per_sm // q_tiles)
+    if cap:
+        want = min(want, max(1, _TC_SCRATCH // (8 * qn * cap)))
     n_ranges = max(1, min(want, -(-n_eff // tn)))
     range_rows = -(-max(n_eff, 1) // n_ranges)
     range_rows = -(-range_rows // tn) * tn
     n_ranges = max(1, -(-n_eff // range_rows))
-    return Plan(cfg, qb, tn, n_ranges, range_rows, smem)
+    # sources of the bins: 4 lanes a warpgroup column (tn / 128) a range
+    nbins = -(-k // 4) if cap and -(-k // 4) <= n_ranges * (tn // 128) * 4 else 0
+    return Plan(cfg, qb, tn, n_ranges, range_rows, smem, cap, nbins)
 
 
 @functools.lru_cache(maxsize=256)
@@ -294,12 +306,17 @@ def _topk_cuda(q, x, n_valid: int, k: int, chunk: int = 0, lane_bits: int = 0):
     p = _launch_plan(qn, n_eff, k, x.dtype, x.device.index, vec, fast)
     # fast-mode key layout: the chunk's row count and the corpus's chunks
     chunk_log2, n_chunks = (chunk.bit_length() - 1, x.shape[0] // chunk) if fast else (0, 0)
-    # one 8-byte list entry per candidate: (f32, i32) exact, int64 key fast
-    cand = torch.empty((qn, p.n_ranges, k), dtype=torch.int64, device=x.device)
+    # one 8-byte entry per candidate: the range lists ((f32, i32) exact,
+    # int64 key fast), or the wgmma scan's candidate keys, then their counts
+    # (int32) and the shared bins (uint32), zeroed by the launcher
+    slots = qn * p.n_ranges * (p.cap or k)
+    extra = qn * (p.n_ranges + p.nbins) if p.cap else 0
+    cand = torch.empty(slots + (extra + 1) // 2, dtype=torch.int64, device=x.device)
+    cnt = cand.data_ptr() + 8 * slots
     err = lib.topk_launch(
         q.data_ptr(), x.data_ptr(), p.cfg, int(vec), qn, n_eff, d, k, p.qb, p.n_ranges,
-        p.range_rows, int(fast), lane_bits, chunk_log2, n_chunks,
-        cand.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+        p.range_rows, int(fast), lane_bits, chunk_log2, n_chunks, p.cap, p.nbins,
+        cand.data_ptr(), cnt, cnt + 4 * qn * p.n_ranges, out_v.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "topk")
     if fast:

@@ -245,6 +245,7 @@ N_LISTS, DIM, PQ_M, PQ_NBITS, SEG = 65_536, 1024, 128, 4, 256
 PQ8 = {"n_lists": 4096, "pq_m": 64, "pq_nbits": 8, "n_rows": 2_097_152}
 # bench.py's configuration (BASELINE.md config 1)
 FLAT_N, FLAT_Q, FLAT_K, FLAT_CHUNK = 2_097_152, 128, 10, 4096
+FLAT_K_WIDE = 100   # the HTTP API's largest k (serve/app.py), FlatIndex's exact route
 # hybrid storage's hot budget at the serve geometry: the largest lists,
 # about 46% of the 12.9 GiB of codes, on the card; a real cold tail
 HYBRID_HOT_BYTES = 6 << 30
@@ -267,8 +268,8 @@ KERNELS = {
                    "abstracts_search_tpu/ops/adc.py:119"),
 }
 # the kernel functions each row's wrapper launches, as the profiler names them
-DEVICE_NAMES = {"topk": ("range_kernel", "topk_merge_kernel"),
-                "topk_fast": ("range_kernel", "topk_merge_kernel"),
+DEVICE_NAMES = {"topk": ("range_kernel", "topk_merge_kernel", "topk_select_kernel"),
+                "topk_fast": ("range_kernel", "topk_merge_kernel", "topk_select_kernel"),
                 "adc_topk": ("adc_topk_kernel",), "adc_kernel_t": ("adc_cols_kernel",),
                 "adc_kernel_packed4": ("adc_rows_kernel",), "adc_kernel": ("adc_rows_kernel",)}
 
@@ -445,7 +446,7 @@ def topk_edges(x, g) -> list:
     """The shapes the tensor-core tiling of the top-k puts at risk, in
     both modes, each held against the plain version and timed: odd d
     (scalar staging, zero-filled depth tail), k 300 at Q 256 over the
-    probe corpus ``x`` (32 queries per block), Q at tile edges, an n_valid
+    probe corpus ``x`` (one query tile), Q at tile edges, an n_valid
     that is not a multiple of any tile, and a corpus of 64 distinct
     small-integer rows repeated (every sum exact, so exact ties must go to
     the lowest row and both modes must equal the plain version bit for
@@ -492,6 +493,64 @@ def topk_edges(x, g) -> list:
                     or (mode == "exact" and res["max_abs_err"] > 1e-4)):
                 raise AssertionError(f"topk kernel disagrees at an edge: {case}")
     return out
+
+
+# the serve probe's k beyond nprobe 16: kernel 1's rows, and the index-only
+# batches the serve phase times at each (nprobe 64 and 128 held against the
+# plain path too)
+PROBE_KS = (32, 64, 128, 256)
+SERVE_NPROBES = (16, 32, 64, 128, 256)
+SERVE_HELD_NPROBES = (2, 16, 64, 128)
+
+
+def topk_row(q, x, n_valid: int, k: int, q_int, x_int, *, plain_reps: int = 3) -> dict:
+    """Kernel 1 (exact) at one shape, held against its plain version: on
+    the real inputs (q, x) index lists equal but for near-ties, on small
+    integers with repeated rows (q_int, x_int: every sum exact) values and
+    rows bit for bit; CUDA-event and device times beside the plain
+    version's, torch.topk(q @ x.T, k)'s and the bytes or operations
+    bound."""
+    from abstracts_search_tpu_torch.ops import topk
+
+    run = lambda qq, xx, impl: topk.streaming_topk(qq, xx, n_valid, k,  # noqa: E731
+                                                   chunk=1024, impl=impl)
+    iv, ii = run(q_int, x_int, "cuda")
+    pv, pi = run(q_int, x_int, "torch")
+    bit_equal = bool(torch.equal(iv, pv) and torch.equal(ii, pi))
+    got, ref = run(q, x, "cuda"), run(q, x, "torch")
+    torch.cuda.synchronize()
+    err, bad, ties = compare_topk(q, x, k, got, ref, 1e-5)
+    row = {"shape": [q.shape[0], n_valid, q.shape[1], k], "dtype": "bf16",
+           "plan": topk._launch_plan(q.shape[0], n_valid, k, torch.bfloat16, 0)._asdict(),
+           "ints_bit_equal": bit_equal, "max_abs_err": err, "index_mismatches": bad,
+           "near_ties": ties}
+    if not bit_equal or bad or err > 1e-4:
+        raise AssertionError(f"kernel 1 disagrees with its plain version: {row}")
+    del iv, ii, pv, pi, got, ref
+    b, by = bound(n_valid * q.shape[1] * 2 + q.numel() * 2 + q.shape[0] * k * 8,
+                  2 * q.shape[0] * n_valid * q.shape[1], "bf16")
+    row.update({"ms": cuda_ms(lambda: run(q, x, "cuda")),
+                "device_ms": device_ms(lambda: run(q, x, "cuda"), DEVICE_NAMES["topk"]),
+                "plain_ms": cuda_ms(lambda: run(q, x, "torch"), reps=plain_reps, warmup=1),
+                "bound_ms": b, "bound_by": by,
+                "library_ms": cuda_ms(lambda: torch.topk(q @ x[:n_valid].T, k)),
+                "library": "torch.topk(q @ x.T, k)"})
+    return row
+
+
+def probe_k_rows(x, g) -> dict:
+    """Kernel 1 at the serve probe's shape past nprobe 16: Q 256 x 65,536
+    x 1024 bf16 (``x``: the probe corpus of unit rows) at each k of
+    PROBE_KS, one query tile at every k."""
+    ints = lambda shape: torch.randint(-3, 4, shape, device="cuda",  # noqa: E731
+                                       generator=g).to(torch.bfloat16)
+    x_int = ints((64, DIM))[torch.randint(0, 64, (N_LISTS,), device="cuda", generator=g)]
+    rows = {}
+    for k in PROBE_KS:
+        q = torch.nn.functional.normalize(
+            torch.randn((256, DIM), device="cuda", generator=g), dim=1).to(torch.bfloat16)
+        rows[f"probe_k{k}"] = topk_row(q, x, N_LISTS, k, ints((256, DIM)), x_int)
+    return rows
 
 
 def sass_by_function(lib_path: str) -> dict:
@@ -637,6 +696,8 @@ def check_kernels(seed: int):
         if case["index_mismatches"]:
             raise AssertionError(f"fast topk kernel disagrees: {case}")
     out["topk_edges"] = topk_edges(x, g)
+    probe = probe_k_rows(x, g)
+    out["topk_probe_k"] = probe
     del x, x_pos
 
     n_segs, n_slots, qn = 24_576, 8_192, 256
@@ -739,8 +800,14 @@ def flat_phase(seed: int, by_path: dict):
         e.record()
         e.synchronize()
         per_batch_ms = s.elapsed_time(e) / reps
+        before = counts()["topk"]
+        v100, _ = flat.search(q_np, FLAT_K_WIDE)     # the HTTP API's largest k
+        if v100.shape != (FLAT_Q, FLAT_K_WIDE) or not np.isfinite(v100).all():
+            raise AssertionError("FlatIndex at k 100 returned malformed scores")
+        wide_launches.append(counts()["topk"] - before)
         return per_batch_ms, flat.search(q_np, FLAT_K)
 
+    wide_launches = []
     per_batch_ms, (fv, fp) = drive("flat", path, ("topk_fast", "topk"), by_path)
     kept = (fv, fp)
 
@@ -791,7 +858,14 @@ def flat_phase(seed: int, by_path: dict):
                                 "near_ties": ties},
            "fast_vs_plain": fast_cmp, "library_ms": library_ms,
            "launches": by_path["flat"]}
-    del x, flat, qs, got, ref
+    del got, ref
+    ints = lambda shape: torch.randint(-3, 4, shape, device="cuda",  # noqa: E731
+                                       generator=g).to(torch.bfloat16)
+    x_int = ints((64, DIM))[torch.randint(0, 64, (FLAT_N,), device="cuda", generator=g)]
+    rows["topk_flat_k100"] = topk_row(q0, x, FLAT_N, FLAT_K_WIDE, ints((FLAT_Q, DIM)), x_int,
+                                      plain_reps=1)
+    rows["topk_flat_k100"].update(launches=wide_launches[0], launches_from="flat path")
+    del x, x_int, flat, qs
     release()
     return res, rows, kept
 
@@ -2057,12 +2131,12 @@ def probe_near_ties(idx, q, nprobe, tol=1e-5):
     return rows, bad
 
 
-def hold_against_plain(idx, q_sets: dict, own) -> dict:
+def hold_against_plain(idx, q_sets: dict, own, nprobes=(2, 16)) -> dict:
     """The kernel path against the plain path on the same resident index
-    at nprobe 2 and 16, and self-hit@10 for the reconstructions."""
+    at each of ``nprobes``, and self-hit@10 for the reconstructions."""
 
     res = {}
-    for nprobe in (2, 16):
+    for nprobe in nprobes:
         for name, q in q_sets.items():
             v, p = idx.search(q, 10, nprobe=nprobe)
             idx.impl, idx.scan_impl = "torch", "torch"
@@ -2174,12 +2248,31 @@ def queries(idx, seed: int):
     return emb, texts, emb.queries(texts), q_rec, own
 
 
+def index_batches(idx, q, nprobes, reps: int = 5) -> dict:
+    """Index-only batch-256 searches (k 10) at each nprobe: host-clock
+    median ms and QPS, and kernel 1's launches at that nprobe."""
+    out = {}
+    for nprobe in nprobes:
+        idx.search(q, 10, nprobe=nprobe)
+        before = counts()["topk"]
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            idx.search(q, 10, nprobe=nprobe)
+            times.append(time.perf_counter() - t)
+        out[f"np{nprobe}"] = {"batch256_ms_median": statistics.median(times) * 1e3,
+                              "qps_batch256": 256 / statistics.median(times),
+                              "kernel_1_launches": counts()["topk"] - before}
+    return out
+
+
 def serve(idx, seed: int, by_path: dict, *, http: bool, path: str, must_launch,
-          kept=None, batch16: bool = False):
+          kept=None, batch16: bool = False, wide: bool = False):
     """The search path through SearchEngine, counted as ``path``; held
     against the plain path, and against ``kept`` (another storage's
-    results on the same queries) where given. -> (context: engine,
-    texts, query sets; the phase's results)."""
+    results on the same queries) where given. ``wide``: held at nprobe 64
+    and 128 too, and index-only batches timed at each of SERVE_NPROBES.
+    -> (context: engine, texts, query sets; the phase's results)."""
 
     from abstracts_search_tpu_torch.serve.engine import SearchEngine
 
@@ -2189,7 +2282,10 @@ def serve(idx, seed: int, by_path: dict, *, http: bool, path: str, must_launch,
 
     def run():
         t0 = time.perf_counter()
-        res = hold_against_plain(idx, q_sets, own)
+        res = hold_against_plain(idx, q_sets, own,
+                                 SERVE_HELD_NPROBES if wide else (2, 16))
+        if wide:
+            res["index_batch256"] = index_batches(idx, q_text, SERVE_NPROBES)
         if kept is not None:
             res["vs_device_storage"] = hold_against_kept(idx, q_sets, kept)
         res.update(engine_times(engine, lambda s: engine.search_batch_encoded(q_text[s], 10),
@@ -3568,7 +3664,10 @@ def main() -> int:
     if "kernels" in phases:
         t = time.perf_counter()
         res, rows["adc_kernel_t"] = check_kernels(args.seed)
-        emit({"phase": "kernels", "seconds": time.perf_counter() - t, **res})
+        probe_rows = res.pop("topk_probe_k")
+        emit({"phase": "kernels", "seconds": time.perf_counter() - t, **res,
+              "topk_probe_k": {name: {key: v for key, v in row.items() if key != "plan"}
+                               for name, row in probe_rows.items()}})
 
     if "flat" in phases:
         t = time.perf_counter()
@@ -3623,11 +3722,21 @@ def main() -> int:
             idx = open_index(art, args.n_rows, args.seed, "index")
             if "serve" in phases:
                 ctx, res = serve(idx, args.seed, by_path, http=True, path="serve",
-                                 must_launch=("topk", "adc_topk"))
+                                 must_launch=("topk", "adc_topk"), wide=True)
                 emit({"phase": "serve", "nprobe": 16, "k": 10, **res})
                 rows.update(probe_and_scan_rows(idx, ctx["q_sets"]["text"], 16, 10))
+                # kernel 3 at the wider probes, as they fall out of the same queries
+                for nprobe in (64, 128):
+                    rows["adc_topk"][f"serve_np{nprobe}"] = probe_and_scan_rows(
+                        idx, ctx["q_sets"]["text"], nprobe, 10)["adc_topk"]
+                if "kernels" in phases:   # the probe rows' launches: the serve path's
+                    for name, row in probe_rows.items():
+                        row.update(launches=res["index_batch256"][f"np{name[7:]}"][
+                            "kernel_1_launches"], launches_from="serve path")
+                    extra_rows["topk"].update(probe_rows)
                 if "flat" in phases:
                     rows["topk"]["flat"] = flat_rows["topk_flat"]
+                    rows["topk"]["flat_k100"] = flat_rows["topk_flat_k100"]
                 for key, sub in extra_rows.items():
                     rows[key].update(sub)
                 if "stages_batch256" in phases:

@@ -65,7 +65,7 @@ def test_fast_topk_kernel_matches_plain_bit_for_bit(cuda, dtype, qn, n, n_valid,
 @pytest.mark.parametrize("qn,n,n_valid,d,k", [
     (37, 4096, 4096, 100, 10),        # odd d: scalar staging, zero-filled depth
     (37, 4096, 4000, 1000, 10),       # a ragged last depth slice
-    (256, 65536, 65536, 64, 300),     # k 300 at Q 256: 32 queries per block
+    (256, 65536, 65536, 64, 300),     # k 300 at Q 256: one query tile
     (1, 65536, 65536, 64, 16), (7, 8192, 8192, 64, 16),     # Q at tile edges
     (129, 8192, 8192, 64, 16), (300, 8192, 8192, 64, 16),
     (128, 8192, 8192 - 77, 64, 10),   # n_valid no multiple of any tile
@@ -79,6 +79,48 @@ def test_topk_kernel_edges_bit_for_bit(cuda, mode, qn, n, n_valid, d, k):
     q = torch.randint(-3, 4, (qn, d), device=cuda, generator=g).to(torch.bfloat16)
     x = torch.randint(-3, 4, (64, d), device=cuda, generator=g)[
         torch.randint(0, 64, (n,), device=cuda, generator=g)].to(torch.bfloat16)
+    kv, ki = topk.streaming_topk(q, x, n_valid, k, chunk=512, impl="cuda", mode=mode)
+    pv, pi = topk.streaming_topk(q, x, n_valid, k, chunk=512, impl="torch", mode=mode)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+@pytest.mark.parametrize("k", [32, 64, 128, 256])
+@pytest.mark.parametrize("qn", [1, 129, 256])
+def test_wgmma_scan_large_k_bit_for_bit(cuda, qn, k, mode):
+    """The serve probe's k at nprobe 32-256: Q 1, 129 and 256 over 65,536
+    rows with a ragged n_valid, in one query tile; bf16 small integers and
+    64 distinct rows repeated, so every sum is exact and both modes must
+    give the plain version's values and rows bit for bit, exact ties going
+    to the lowest row."""
+    g = torch.Generator(device=cuda).manual_seed(qn + k)
+    q = torch.randint(-3, 4, (qn, 64), device=cuda, generator=g).to(torch.bfloat16)
+    x = torch.randint(-3, 4, (64, 64), device=cuda, generator=g)[
+        torch.randint(0, 64, (65_536,), device=cuda, generator=g)].to(torch.bfloat16)
+    n_valid = 65_536 - 77
+    assert topk._launch_plan(qn, n_valid, k, torch.bfloat16, cuda.index or 0, True,
+                             mode == "fast").qb == qn
+    before = topk.launches + topk.fast_launches
+    kv, ki = topk.streaming_topk(q, x, n_valid, k, chunk=512, impl="cuda", mode=mode)
+    assert topk.launches + topk.fast_launches == before + 1
+    pv, pi = topk.streaming_topk(q, x, n_valid, k, chunk=512, impl="torch", mode=mode)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+@pytest.mark.parametrize("qn,k,distinct,n_valid", [(37, 64, 1, 65_536), (256, 256, 1, 65_536),
+                                                   (129, 100, 3, 65_000), (3, 256, 2, 100)])
+def test_wgmma_scan_full_buffers_bit_for_bit(cuda, qn, k, distinct, n_valid, mode):
+    """One, two or three distinct rows: a query's scores tie across the
+    corpus, so every range's candidate buffer fills and is folded in the
+    kernel, and more candidates than the select pass holds in shared memory
+    reach the bound (it reads them from device memory); fewer valid rows
+    than k leave the tail empty. The plain version's values and rows, bit
+    for bit: the lowest rows win."""
+    g = torch.Generator(device=cuda).manual_seed(qn + k + distinct)
+    q = torch.randint(-3, 4, (qn, 64), device=cuda, generator=g).to(torch.bfloat16)
+    x = torch.randint(-3, 4, (distinct, 64), device=cuda, generator=g)[
+        torch.randint(0, distinct, (65_536,), device=cuda, generator=g)].to(torch.bfloat16)
     kv, ki = topk.streaming_topk(q, x, n_valid, k, chunk=512, impl="cuda", mode=mode)
     pv, pi = topk.streaming_topk(q, x, n_valid, k, chunk=512, impl="torch", mode=mode)
     assert torch.equal(kv, pv) and torch.equal(ki, pi)

@@ -25,6 +25,12 @@ CASES = {
     "k_gt_valid": (4, 16, 128, 128, 5, 16, "f32"),
     "k_gt_16":  (3, 16, 256, 64, 256, 32, "bf16"),
     "dup_rows": (6, 16, 256, 64, 250, 12, "f32"),
+    # the wgmma scan's k range (nprobe 32-256, flat search's k 100): rows
+    # repeated, so exact ties reach the k-th place
+    "k32_ties": (16, 64, 2048, 512, 2048, 32, "bf16"),
+    "k64_ties": (9, 64, 2048, 512, 1977, 64, "bf16"),
+    "k128_ties": (16, 64, 2048, 512, 2048, 128, "bf16"),
+    "k256_ties": (5, 64, 2048, 512, 2000, 256, "bf16"),
 }
 
 
@@ -32,7 +38,7 @@ def _inputs(case):
     qn, d, n, chunk, n_valid, k, dtype = CASES[case]
     rng = np.random.default_rng(sum(map(ord, case)))
     q = rng.standard_normal((qn, d)).astype(np.float32)
-    if case == "dup_rows":
+    if case == "dup_rows" or case.endswith("_ties"):
         # every row repeats one of 20 distinct rows: exact ties everywhere
         x = rng.standard_normal((20, d)).astype(np.float32)[rng.integers(0, 20, n)]
     else:
@@ -214,12 +220,32 @@ def test_plan_reads_the_corpus_once_up_to_256_queries(qn, k):
 
 
 def test_plan_narrows_the_query_tile_for_large_k():
-    """k 300 at Q 256 does not fit 128 or 256 lists of 300: the
-    128-query tile takes it with 32 queries per block, still on tensor
-    cores; a k near the old limit goes down to a few queries per block."""
+    """It no longer does: the wgmma scan keeps no per-query list in shared
+    memory, so k 300 at Q 256 (32 queries per block before) and a k near
+    the old limit (a few) keep the 256-query tile and one query tile, on
+    tensor cores; the shared memory is the same at every k."""
     p = _plan(256, 65_536, 300, torch.bfloat16, H100_SMS)
-    assert p.tensor_cores and p.cfg == min(_TC) and p.qb == 32
-    assert _plan(256, 65_536, K_MAX_FMA, torch.bfloat16, H100_SMS).qb < 32
+    assert p.tensor_cores and p.cfg == max(_TC) and p.qb == 256
+    big = _plan(256, 65_536, K_MAX_FMA, torch.bfloat16, H100_SMS)
+    assert big.cfg == max(_TC) and big.qb == 256 and big.smem == p.smem
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("k", [2, 16, 32, 64, 100, 128, 256])
+@pytest.mark.parametrize("qn,n_eff", [(1, 65_536), (129, 65_536), (256, 65_536),
+                                      (128, 2_097_152), (256, 131_072)])
+def test_plan_serves_up_to_256_queries_in_one_query_tile_at_every_k(qn, n_eff, k, fast):
+    """The serve probe at nprobe 2-256, flat search at k up to 100 and the
+    tune oracle: Q <= 256 takes one query tile (the corpus read once) on
+    the smallest wgmma tile that holds it, whatever k; each (query, range)
+    gets 2k + 2 (rows per tile) candidate slots (folded past k + rows per
+    tile), and k/4 shared bins per query when the ranges' lanes are that
+    many sources."""
+    p = _plan(qn, n_eff, k, torch.bfloat16, H100_SMS, fast=fast)
+    assert p.cfg == (min(_TC) if qn <= 128 else max(_TC)) and p.qb == qn
+    assert p.smem == _smem(p.cfg, p.qb, 1) <= _BLOCK_SMEM
+    assert p.cap == 2 * k + 2 * p.tn and p.nbins == -(-k // 4)
+    assert H100_SMS // 2 < p.n_ranges <= H100_SMS
 
 
 @pytest.mark.parametrize("qn,k", [(1, 2), (1, 16), (7, 16), (16, 300), (100, 64)])
@@ -267,14 +293,23 @@ def test_plan_keeps_the_wgmma_scan_for_rows_tma_cannot_copy_and_fast_mode(qn, kw
 
 
 @pytest.mark.parametrize("cfg,qb,k", [(6, 128, 1), (4, 64, 1), (4, 64, 16), (5, 128, 1),
-                                      (5, 128, 16), (4, 64, 200)])
+                                      (5, 128, 16), (4, 64, 200), (2, 128, 16), (2, 7, 256),
+                                      (3, 256, 16), (3, 129, 256), (3, 256, 3288)])
 def test_smem_mirror_covers_the_new_configurations(cfg, qb, k):
     """The Python mirror of topk_smem_bytes: the k-1 scan's ring of four
     48 KiB stages and its barriers, whatever k; the register-blocked
     scan's ring of four stages of 32-deep f32 rows (128 bytes), its
-    barriers and its lists."""
+    barriers and its lists; the wgmma scan's ring of four 48 KiB stages,
+    its barriers, 16 bytes per query of its tile, 16 of scratch and 32
+    per thread of its 512, whatever k and however many queries the block
+    serves."""
     if cfg in _K1:
         assert _smem(cfg, qb, k) == 1024 + 4 * (128 + 256) * 64 * 2 + 16 * 4
+    elif cfg in _TC:
+        qt, tn = _TC[cfg]
+        assert _smem(cfg, qb, k) == (1024 + 4 * (qt + tn) * 64 * 2 + 64 + 16 * qt + 16
+                                     + 32 * 512)
+        assert (qt + tn) * 64 * 2 == 48 * 1024
     else:
         qt, tn = _SIMT[cfg]
         assert _smem(cfg, qb, k) == (1024 + 4 * (qt + tn) * 128 + 8 * 4 + 8 * qt * (k + 16)

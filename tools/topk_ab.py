@@ -10,14 +10,21 @@ tree's kernel is called through its own wrapper,
 this process, DIR's in a child process (this script run with ``--tree
 DIR``) that answers requests over a pipe, so each tree builds its own
 kernels into its own ``build/kernels``. Both processes make the same
-inputs on the card from the seed, at three shapes:
+inputs on the card from the seed, at these shapes:
 
 - ``build_k1``: the index build's assignment, Q 131,072 x 65,536 x 1,024
   bf16, k 1 (unit rows);
 - ``ivf_flat_probe``: IVF-Flat's plain-L2 probe, Q 256 x 4,096 x 1,152
   f32 (1,024 dims, the bias column, zero padding), k 16;
 - ``plain_l2_kmeans``: plain-L2 k-means' window, Q 262,144 x 4,096 x
-  1,152 f32, k 1.
+  1,152 f32, k 1;
+- ``probe_k16``, ``probe_k64``, ``probe_k256``: the IVF-PQ serve probe,
+  Q 256 x 65,536 x 1,024 bf16 at nprobe 16, 64 and 256;
+- ``oracle_k10``: tune's exact oracle, Q 256 x 131,072 x 1,024 bf16, k 10;
+- ``flat_k10``, ``flat_k100``: flat search (FlatIndex, exact mode), Q 128
+  x 2,097,152 x 1,024 bf16 at k 10 and the HTTP API's largest k, 100;
+  ``flat_k10_fast``: the same at k 10 in fast mode, chunk 4,096 (kernel 2,
+  bench.py's).
 
 Each shape is first held against the plain version (``impl="torch"``) on
 small integers with 64 distinct rows repeated, where every sum is exact
@@ -52,13 +59,25 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402  (imports numpy and torch only)
 
-NAMES = ("range_kernel", "topk_merge_kernel")     # kernel 1's functions in either tree
+# kernel 1's functions in either tree
+NAMES = ("range_kernel", "topk_merge_kernel", "topk_select_kernel")
 SUB = 16_384                                      # library sub-window rows at k 1
 # case -> (queries, rows, dims, valid dims, k, dtype)
 SHAPES = {"build_k1": (131_072, 65_536, 1024, 1024, 1, torch.bfloat16),
           "ivf_flat_probe": (256, 4096, 1152, 1025, 16, torch.float32),
-          "plain_l2_kmeans": (262_144, 4096, 1152, 1025, 1, torch.float32)}
-REPS = {"build_k1": 5, "ivf_flat_probe": 20, "plain_l2_kmeans": 3}
+          "plain_l2_kmeans": (262_144, 4096, 1152, 1025, 1, torch.float32),
+          "probe_k16": (256, 65_536, 1024, 1024, 16, torch.bfloat16),
+          "probe_k64": (256, 65_536, 1024, 1024, 64, torch.bfloat16),
+          "probe_k256": (256, 65_536, 1024, 1024, 256, torch.bfloat16),
+          "oracle_k10": (256, 131_072, 1024, 1024, 10, torch.bfloat16),
+          "flat_k10": (128, 2_097_152, 1024, 1024, 10, torch.bfloat16),
+          "flat_k10_fast": (128, 2_097_152, 1024, 1024, 10, torch.bfloat16),
+          "flat_k100": (128, 2_097_152, 1024, 1024, 100, torch.bfloat16)}
+REPS = {"build_k1": 5, "ivf_flat_probe": 20, "plain_l2_kmeans": 3, "probe_k16": 20,
+        "probe_k64": 20, "probe_k256": 20, "oracle_k10": 20, "flat_k10": 10,
+        "flat_k10_fast": 10, "flat_k100": 10}
+# case -> (mode, chunk): fast mode at bench.py's chunk, else exact
+MODES = {"flat_k10_fast": ("fast", 4096)}
 
 
 def make(case: str, g, ints: bool):
@@ -106,7 +125,8 @@ class Trial:
     def run(self, case: str, ints: bool = False, impl: str = "cuda"):
         q, x = self._inputs(case, ints)
         k = SHAPES[case][4]
-        return self.topk.streaming_topk(q, x, x.shape[0], k, chunk=1024, impl=impl)
+        mode, chunk = MODES.get(case, ("exact", 1024))
+        return self.topk.streaming_topk(q, x, x.shape[0], k, chunk=chunk, impl=impl, mode=mode)
 
     def call(self, op: str, *args):
         return getattr(self, op)(*args)
@@ -266,7 +286,9 @@ def main() -> int:
         for case, (qn, n, d, dv, k, dtype) in SHAPES.items():
             want = cur.digest(case, True, "torch")
             row = {"shape": [qn, n, d, k], "dtype": str(dtype).split(".")[-1],
-                   "plan": topk._plan(qn, n, k, dtype, sms)._asdict(),
+                   "mode": MODES.get(case, ("exact",))[0],
+                   "plan": topk._plan(qn, n, k, dtype, sms,
+                                      fast=case in MODES)._asdict(),
                    "ints_equal_to_plain": {"change": cur.digest(case) == want,
                                            "parent": par.call("digest", case) == want}}
             res[case] = row
@@ -276,7 +298,9 @@ def main() -> int:
             q, x = cur._inputs(case, False)
             mine = cur.run(case)[1]
             theirs = torch.tensor(par.call("rows", case), device="cuda")
-            row["parent_vs_change"] = near_tie_rows(q, x, mine, theirs)
+            # fast mode: truncated values tie within a step, not 1e-5
+            row["parent_vs_change"] = near_tie_rows(q, x, mine, theirs,
+                                                    1e-4 if case in MODES else 1e-5)
             if row["parent_vs_change"]["not_near_ties"]:
                 print(json.dumps(res), flush=True)
                 raise AssertionError(f"{case}: the trees disagree beyond near-ties")
@@ -285,9 +309,9 @@ def main() -> int:
             row.update({"parent_ms": [t[0]["ms"], t[3]["ms"]], "ms": [t[1]["ms"], t[2]["ms"]],
                         "parent_device_ms": [t[0]["device_ms"], t[3]["device_ms"]],
                         "device_ms": [t[1]["device_ms"], t[2]["device_ms"]],
-                        "merge_pass_device_ms": cs.device_ms(lambda: cur.run(case),
-                                                             ("topk_merge_kernel",), reps=3)
-                        if row["plan"]["n_ranges"] > 1 or k > 1 else 0.0,
+                        "merge_pass_device_ms": cs.device_ms(
+                            lambda: cur.run(case), ("topk_merge_kernel", "topk_select_kernel"),
+                            reps=3) if row["plan"]["n_ranges"] > 1 or k > 1 else 0.0,
                         "bound_ms": b, "bound_by": by,
                         "library_ms": library_ms(case, q, x)})
             print(json.dumps({case: row}), file=sys.stderr, flush=True)
