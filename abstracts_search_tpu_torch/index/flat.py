@@ -21,6 +21,7 @@ from ..device import assert_exact_f32
 from ..ops.topk import streaming_topk
 from ..parallel.mesh import Mesh, index_mesh, shard_rows
 from ..parallel.topk_merge import merge_topk, merge_topk_all_gather
+from ..utils import trace
 
 
 class FlatIndex:
@@ -71,12 +72,16 @@ class FlatIndex:
         if self._x is None:
             raise RuntimeError("index is empty")
         assert_exact_f32()
-        q = torch.from_numpy(np.asarray(queries, np.float32)).to(self.device)
-        with torch.inference_mode():
-            v, i = streaming_topk(q.to(self.dtype), self._x, self._rows, k, chunk=self.chunk,
-                                  impl=self.impl)
-            if self.mesh.collective:
-                v, i, _ = merge_topk_all_gather(v, i.long() + self._lo, k, self.mesh)
-            else:
-                v, i = merge_topk(v[None], i[None], k)
-        return v.cpu().numpy(), i.cpu().numpy().astype(np.int64)
+        with trace.span("flat.search", queries=len(queries)):
+            with trace.span("flat.upload"):
+                q = torch.from_numpy(np.asarray(queries, np.float32)).to(self.device)
+            with torch.inference_mode():
+                v, i = streaming_topk(q.to(self.dtype), self._x, self._rows, k, chunk=self.chunk,
+                                      impl=self.impl)
+                with trace.span("flat.merge"):
+                    if self.mesh.collective:
+                        v, i, _ = merge_topk_all_gather(v, i.long() + self._lo, k, self.mesh)
+                    else:
+                        v, i = merge_topk(v[None], i[None], k)
+            with trace.span("flat.winners"):
+                return v.cpu().numpy(), i.cpu().numpy().astype(np.int64)

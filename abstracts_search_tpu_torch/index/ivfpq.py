@@ -85,6 +85,7 @@ with the same arguments):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import shutil
@@ -102,6 +103,7 @@ from ..ops.adc import adc_scan, adc_topk
 from ..ops.topk import streaming_topk
 from ..parallel.mesh import Mesh, index_mesh, process_barrier, shard_rows
 from ..parallel.topk_merge import merge_topk_all_gather
+from ..utils import trace
 from ..utils.trace import StageTimer
 from .kmeans import KMeans, _normalize_rows, _normalize_rows_t, _round_up
 from .lists import (CSRLists, load_lists, pack_lists, pack_lists_external, ragged_ranges,
@@ -113,6 +115,15 @@ logger = logging.getLogger(__name__)
 
 NEG_INF = float("-inf")
 STORAGES = ("device", "host", "hybrid", "auto")
+
+
+@contextlib.contextmanager
+def _timed(timing: dict, key: str, name: str, **counts):
+    """A ``trace.measure`` span whose host seconds add to ``timing[key]``
+    (the fill's stage seconds in ``fill_stats``)."""
+    with trace.measure(name, **counts) as sp:
+        yield sp
+    timing[key] = timing.get(key, 0.0) + sp.host_s
 
 
 def _take(arr: np.ndarray, rows, lo: int, hi: int, out=None):
@@ -568,28 +579,38 @@ class IVFPQIndex:
             x = _normalize_rows_t(x)
         return self._encode_fused(x)
 
-    def encode(self, vectors, *, batch_rows: int = 1 << 18) -> tuple[np.ndarray, np.ndarray]:
+    def encode(self, vectors, *, batch_rows: int = 1 << 18,
+               timing: dict | None = None) -> tuple[np.ndarray, np.ndarray]:
         """-> (list assignment [N] i64, residual PQ codes [N, code_bytes]
         u8 in the storage format: 4-bit codes arrive nibble-packed).
 
         ``vectors`` may be a tensor on the card: then the rows never cross
-        to the host, and only the codes download."""
+        to the host, and only the codes download. Host rows pass through
+        ``fill.normalize``, ``fill.upload`` (each host-to-card copy) and
+        ``fill.download`` spans; ``timing`` (the fill's stage seconds)
+        gains the host seconds of the first two as ``normalize_s`` and
+        ``upload_s``."""
         if not self.is_trained:
             raise RuntimeError("train() before encode()")
         if isinstance(vectors, torch.Tensor):
             a, cd = self._encode_dispatch(vectors)
             return a.cpu().numpy(), cd.cpu().numpy()
+        timing = {} if timing is None else timing
         x = np.asarray(vectors, np.float32)
         if self.spherical:
-            x = _normalize_rows(x)
+            with _timed(timing, "normalize_s", "fill.normalize", rows=len(x)):
+                x = _normalize_rows(x)
         n = len(x)
         assign = np.empty(n, np.int64)
         codes = np.empty((n, self.code_bytes), np.uint8)
         for lo in range(0, n, batch_rows):
-            xc = torch.from_numpy(np.ascontiguousarray(x[lo:lo + batch_rows])).to(self.device)
+            xh = np.ascontiguousarray(x[lo:lo + batch_rows])
+            with _timed(timing, "upload_s", "fill.upload", bytes=xh.nbytes):
+                xc = torch.from_numpy(xh).to(self.device)
             a, cd = self._encode_fused(xc)
-            assign[lo:lo + len(xc)] = a.cpu().numpy()
-            codes[lo:lo + len(xc)] = cd.cpu().numpy()
+            with trace.span("fill.download"):
+                assign[lo:lo + len(xc)] = a.cpu().numpy()
+                codes[lo:lo + len(xc)] = cd.cpu().numpy()
         return assign, codes
 
     def fill(self, vectors: np.ndarray, positions: np.ndarray | None = None) -> None:
@@ -617,71 +638,69 @@ class IVFPQIndex:
         docstring).
 
         ``fill_stats`` then holds rows, rows_per_s and seconds of each
-        stage: encode (the card's time in the fused encode, by CUDA
-        events; host time on the CPU), download (waiting for codes to
-        land), spill and pack."""
+        stage, each the seconds of its ``fill.<stage>`` spans (the
+        ``fill.job`` span's children): encode (a device chunk's fused
+        encode, the card's time by the span's CUDA events, host time off
+        the card; a host chunk's whole encode, on the host's clock),
+        download (waiting for a device chunk's codes to land), spill
+        (``fill.collect``: the chunks' codes kept in RAM, or spilled to
+        disk), pack, install, and on host chunks normalize (rows to unit
+        norm) and upload (host-to-card copies)."""
         from ..utils import prefetch_iterator
 
         self._refuse_mutation("fill")
         assert_exact_f32()
-        stream = prefetch_iterator(iter(chunks), depth=prefetch)
-        on_card = self.device.type == "cuda"
-        timing = {"encode_s": 0.0, "download_s": 0.0}
-        events = []
+        with trace.span("fill.job"):
+            stream = prefetch_iterator(iter(chunks), depth=prefetch)
+            on_card = self.device.type == "cuda"
+            timing = dict.fromkeys(("normalize_s", "upload_s", "encode_s", "download_s"), 0.0)
+            encodes = []    # device chunks' encode spans, resolved once the fill has ended
 
-        def dispatch(vectors):
-            """Enqueue the encode and the copy of its outputs to pinned
-            host memory; -> (host assignments, host codes, copy event)."""
-            t0 = time.perf_counter()
-            if not on_card:
-                a, cd = self._encode_dispatch(vectors)
-                timing["encode_s"] += time.perf_counter() - t0
-                return a, cd, None
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            a, cd = self._encode_dispatch(vectors)
-            ev[1].record()
-            events.append(ev)
-            ah = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-            ch = torch.empty(cd.shape, dtype=cd.dtype, pin_memory=True)
-            ah.copy_(a, non_blocking=True)
-            ch.copy_(cd, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            return ah, ch, done
+            def dispatch(vectors):
+                """Enqueue the encode and the copy of its outputs to pinned
+                host memory; -> (host assignments, host codes, copy event)."""
+                with trace.measure("fill.encode", device=self.device) as enc:
+                    a, cd = self._encode_dispatch(vectors)
+                encodes.append(enc)
+                if not on_card:
+                    return a, cd, None
+                ah = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                ch = torch.empty(cd.shape, dtype=cd.dtype, pin_memory=True)
+                ah.copy_(a, non_blocking=True)
+                ch.copy_(cd, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                return ah, ch, done
 
-        def drain(p):
-            (ah, ch, done), pos = p
-            t0 = time.perf_counter()
-            if done is not None:
-                done.synchronize()
-            timing["download_s"] += time.perf_counter() - t0
-            return ah.numpy(), ch.numpy(), pos
+            def drain(p):
+                (ah, ch, done), pos = p
+                if done is not None:
+                    with _timed(timing, "download_s", "fill.download"):
+                        done.synchronize()
+                return ah.numpy(), ch.numpy(), pos
 
-        def encoded():
-            pending = None
-            for vectors, positions in stream:
-                if isinstance(vectors, torch.Tensor):
-                    cur = (dispatch(vectors), np.asarray(positions))
-                else:
-                    if pending is not None:  # preserve position order
+            def encoded():
+                pending = None
+                for vectors, positions in stream:
+                    if isinstance(vectors, torch.Tensor):
+                        cur = (dispatch(vectors), np.asarray(positions))
+                    else:
+                        if pending is not None:  # preserve position order
+                            yield drain(pending)
+                            pending = None
+                        with _timed(timing, "encode_s", "fill.encode"):
+                            assign, codes = self.encode(vectors, timing=timing)
+                        yield assign, codes, np.asarray(positions)
+                        continue
+                    if pending is not None:
                         yield drain(pending)
-                        pending = None
-                    t0 = time.perf_counter()
-                    assign, codes = self.encode(vectors)
-                    timing["encode_s"] += time.perf_counter() - t0
-                    yield assign, codes, np.asarray(positions)
-                    continue
+                    pending = cur
                 if pending is not None:
                     yield drain(pending)
-                pending = cur
-            if pending is not None:
-                yield drain(pending)
 
-        self.fill_encoded_stream(encoded(), lists_dir=lists_dir)
-        if events:
-            timing["encode_s"] += sum(a.elapsed_time(b) for a, b in events) / 1e3
-        self.fill_stats.update(timing)
+            self.fill_encoded_stream(encoded(), lists_dir=lists_dir)
+            timing["encode_s"] += sum(enc.device_seconds() for enc in encodes)
+            self.fill_stats.update(timing)
 
     def fill_encoded_stream(self, chunks, *, lists_dir: str | Path | None = None) -> None:
         """Fill from pre-encoded ``(assignments, codes, positions)``
@@ -704,31 +723,27 @@ class IVFPQIndex:
         if lists_dir is not None:
             return self._fill_spilled(iter(chunks), Path(lists_dir))
         t_start = time.perf_counter()
-        spill_s = 0.0
+        timing = {"spill_s": 0.0}
         codes_parts, assign_parts, pos_parts = [], [], []
         for assign, codes, positions in chunks:
-            t0 = time.perf_counter()
-            codes_parts.append(np.asarray(codes, np.uint8))
-            assign_parts.append(np.asarray(assign))
-            pos_parts.append(np.asarray(positions))
-            spill_s += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        packed = pack_lists(
-            np.concatenate(codes_parts),
-            np.concatenate(pos_parts),
-            np.concatenate(assign_parts),
-            self.n_lists,
-            seg_size=self.seg_size,
-            transposed=True,
-        )
-        pack_s = time.perf_counter() - t0
+            with _timed(timing, "spill_s", "fill.collect"):
+                codes_parts.append(np.asarray(codes, np.uint8))
+                assign_parts.append(np.asarray(assign))
+                pos_parts.append(np.asarray(positions))
+        with _timed(timing, "pack_s", "fill.pack"):
+            packed = pack_lists(
+                np.concatenate(codes_parts),
+                np.concatenate(pos_parts),
+                np.concatenate(assign_parts),
+                self.n_lists,
+                seg_size=self.seg_size,
+                transposed=True,
+            )
         seconds = time.perf_counter() - t_start
-        t0 = time.perf_counter()
-        self._install(packed)
+        with _timed(timing, "install_s", "fill.install"):
+            self._install(packed)
         self.fill_stats = {"rows": int(packed.n_rows), "seconds": seconds,
-                           "rows_per_s": packed.n_rows / seconds if seconds else 0.0,
-                           "spill_s": spill_s, "pack_s": pack_s,
-                           "install_s": time.perf_counter() - t0}
+                           "rows_per_s": packed.n_rows / seconds if seconds else 0.0, **timing}
 
     def _fill_spilled(self, stream, lists_dir: Path) -> None:
         """The fill's tail with ``lists_dir`` (the production path, in one
@@ -750,16 +765,15 @@ class IVFPQIndex:
             shutil.rmtree(mine)
         mine.mkdir(parents=True)
         lists_dir.mkdir(parents=True, exist_ok=True)
-        rows, spill_s = [], 0.0
+        rows, timing = [], {"spill_s": 0.0, "pack_s": 0.0}
         with open(mine / "codes.u8", "wb") as cf, open(mine / "assign.i32", "wb") as af, \
              open(mine / "pos.i64", "wb") as pf:
             for assign, codes, positions in stream:
-                t0 = time.perf_counter()
-                np.ascontiguousarray(codes, np.uint8).tofile(cf)
-                np.asarray(assign).astype(np.int32).tofile(af)
-                np.asarray(positions, np.int64).tofile(pf)
+                with _timed(timing, "spill_s", "fill.collect"):
+                    np.ascontiguousarray(codes, np.uint8).tofile(cf)
+                    np.asarray(assign).astype(np.int32).tofile(af)
+                    np.asarray(positions, np.int64).tofile(pf)
                 rows.append(len(codes))
-                spill_s += time.perf_counter() - t0
         n_local = int(sum(rows))
         if self.mesh.collective:
             np.asarray(rows, np.int64).tofile(mine / "rows.i64")
@@ -770,37 +784,36 @@ class IVFPQIndex:
         t0 = time.perf_counter()
         process_barrier(self.mesh)
         wait_s = time.perf_counter() - t0
-        pack_s = 0.0
         if rank == 0:
-            t0 = time.perf_counter()
-            try:
-                src = mine
-                if w > 1:
-                    _merge_spills(spill_root, w, self.code_bytes)
-                    src = spill_root
-                n_total = (src / "pos.i64").stat().st_size // 8
-                # all three spill streams stay memmapped: the pack's count
-                # and routing passes read assignments slab by slab
-                pack_lists_external(
-                    np.memmap(src / "codes.u8", dtype=np.uint8, mode="r",
-                              shape=(n_total, self.code_bytes)),
-                    np.memmap(src / "pos.i64", dtype=np.int64, mode="r", shape=(n_total,)),
-                    np.memmap(src / "assign.i32", dtype=np.int32, mode="r", shape=(n_total,)),
-                    self.n_lists, seg_size=self.seg_size, out_dir=lists_dir, transposed=True)
-            finally:
-                shutil.rmtree(spill_root, ignore_errors=True)
-            pack_s = time.perf_counter() - t0
+            with _timed(timing, "pack_s", "fill.pack"):
+                try:
+                    src = mine
+                    if w > 1:
+                        _merge_spills(spill_root, w, self.code_bytes)
+                        src = spill_root
+                    n_total = (src / "pos.i64").stat().st_size // 8
+                    # all three spill streams stay memmapped: the pack's count
+                    # and routing passes read assignments slab by slab
+                    pack_lists_external(
+                        np.memmap(src / "codes.u8", dtype=np.uint8, mode="r",
+                                  shape=(n_total, self.code_bytes)),
+                        np.memmap(src / "pos.i64", dtype=np.int64, mode="r", shape=(n_total,)),
+                        np.memmap(src / "assign.i32", dtype=np.int32, mode="r",
+                                  shape=(n_total,)),
+                        self.n_lists, seg_size=self.seg_size, out_dir=lists_dir,
+                        transposed=True)
+                finally:
+                    shutil.rmtree(spill_root, ignore_errors=True)
         t0 = time.perf_counter()
         process_barrier(self.mesh)
         wait_s += time.perf_counter() - t0
         seconds = time.perf_counter() - t_start
-        t0 = time.perf_counter()
         packed = load_lists(lists_dir, mmap=True)
-        self._install(packed)
+        with _timed(timing, "install_s", "fill.install"):
+            self._install(packed)
         self.fill_stats = {"rows": int(packed.n_rows), "seconds": seconds,
                            "rows_per_s": packed.n_rows / seconds if seconds else 0.0,
-                           "spill_s": spill_s, "pack_s": pack_s, "barrier_s": wait_s,
-                           "install_s": time.perf_counter() - t0, "rank": rank,
+                           **timing, "barrier_s": wait_s, "rank": rank,
                            "mesh_size": w, "rank_rows": n_local, "rank_chunks": len(rows)}
 
     # -- install -----------------------------------------------------------------
@@ -1049,25 +1062,28 @@ class IVFPQIndex:
         awaited. -> (values [Q, k], tile rows [Q, k], canonical segment
         of each tile, stats)."""
         dev = self.device
-        qn = probes_h.shape[0]
-        pl = probes_h.reshape(-1).astype(np.int64)
-        cnt = self._host_cnt[pl]
-        sidx, pair = ragged_ranges(self._seg_start_h[pl], cnt)
-        percnt = cnt.reshape(qn, nprobe).sum(axis=1)
-        n = len(sidx)
-        t0 = time.perf_counter()
-        codes = self._stage(self.packed.data, sidx)
-        # each tile's pair, query and live rows, then each query's slot
-        # count, in one upload
-        meta = np.concatenate([pair, pair // nprobe, np.asarray(self.packed.seg_valid)[sidx],
-                               percnt]).astype(np.int64)
-        meta = self._stage(meta.view(np.uint8).reshape(-1, 8)).view(torch.int64).reshape(-1)
+        with trace.span("ivfpq.slots"):
+            qn = probes_h.shape[0]
+            pl = probes_h.reshape(-1).astype(np.int64)
+            cnt = self._host_cnt[pl]
+            sidx, pair = ragged_ranges(self._seg_start_h[pl], cnt)
+            percnt = cnt.reshape(qn, nprobe).sum(axis=1)
+            n = len(sidx)
+        seg_bytes = int(np.prod(self.packed.data.shape[1:]))
+        with trace.measure("ivfpq.gather", bytes=n * seg_bytes) as gather:
+            codes = self._stage(self.packed.data, sidx)
+            # each tile's pair, query and live rows, then each query's slot
+            # count, in one upload
+            meta = np.concatenate([pair, pair // nprobe, np.asarray(self.packed.seg_valid)[sidx],
+                                   percnt]).astype(np.int64)
+            meta = self._stage(meta.view(np.uint8).reshape(-1, 8)).view(torch.int64).reshape(-1)
         stats = {"tiles": n, "gathered_bytes": int(codes.numel()),
-                 "gather_ms": (time.perf_counter() - t0) * 1e3}
+                 "gather_ms": gather.host_s * 1e3}
         slots = Slots(seg_ids=torch.arange(n, dtype=torch.int32, device=dev),
                       q_ids=meta[n:2 * n].int(), valid=meta[2 * n:3 * n].int(),
                       pair=meta[:n], percnt=meta[3 * n:], maxcnt=int(percnt.max()))
-        v, rows = self._scan_slots(codes, luts, bias, slots, k)
+        with trace.span("ivfpq.scan", device=dev, slots=n):
+            v, rows = self._scan_slots(codes, luts, bias, slots, k)
         return v, rows, sidx, stats
 
     def _rows_to_pos(self, rows: np.ndarray, seg_map=None) -> np.ndarray:
@@ -1092,13 +1108,14 @@ class IVFPQIndex:
             raise RuntimeError("no lists installed: load a filled index")
         assert_exact_f32()
         nprobe = min(nprobe, self.n_lists)
-        v, pos = self._search_shard(queries, k, nprobe)
-        if not self.mesh.collective:
-            return v, pos
-        st = self.last_scan_stats
-        mine = torch.tensor([st["live_slots"], st.get("cold_live_slots", 0)])
-        v, pos, ranks = merge_topk_all_gather(torch.from_numpy(v), torch.from_numpy(pos), k,
-                                              self.mesh, stats=mine)
+        with trace.span("ivfpq.search", queries=len(queries), nprobe=nprobe):
+            v, pos = self._search_shard(queries, k, nprobe)
+            if not self.mesh.collective:
+                return v, pos
+            st = self.last_scan_stats
+            mine = torch.tensor([st["live_slots"], st.get("cold_live_slots", 0)])
+            v, pos, ranks = merge_topk_all_gather(torch.from_numpy(v), torch.from_numpy(pos), k,
+                                                  self.mesh, stats=mine)
         st.update(live_slots=int(ranks[:, 0].sum()), live_slots_by_rank=ranks[:, 0].tolist())
         if "cold_live_slots" in st:
             st["cold_live_slots"] = int(ranks[:, 1].sum())
@@ -1113,19 +1130,26 @@ class IVFPQIndex:
             q = _normalize_rows(q)
         qt = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
         cold = None
+        dev = self.device
         with torch.inference_mode():
-            probes, bias, luts = self._probe(qt, nprobe)
+            with trace.span("ivfpq.probe", device=dev):
+                probes, bias, luts = self._probe(qt, nprobe)
             if self.storage == "host":
                 v, rows, sidx, st = self._scan_host_lists(probes.cpu().numpy(), bias, luts, k,
                                                           nprobe)
                 self.last_scan_stats = {"live_slots": st["tiles"], **st}
                 # one device -> host copy of the winners
-                return v.cpu().numpy(), self._rows_to_pos(rows.cpu().numpy(), sidx)
-            slots = self._slots(probes, nprobe)     # waits for the probe
+                with trace.span("ivfpq.winners"):
+                    v, rows = v.cpu().numpy(), rows.cpu().numpy()
+                with trace.span("ivfpq.positions"):
+                    return v, self._rows_to_pos(rows, sidx)
+            with trace.span("ivfpq.slots", device=dev):
+                slots = self._slots(probes, nprobe)     # waits for the probe
             self.last_scan_stats = {"live_slots": len(slots.seg_ids), "maxcnt": slots.maxcnt}
             # hybrid: the probes come to the host while the card is idle
             probes_h = probes.cpu().numpy() if self._has_cold else None
-            v, rows = self._scan_slots(self._codes, luts, bias, slots, k)
+            with trace.span("ivfpq.scan", device=dev, slots=len(slots.seg_ids)):
+                v, rows = self._scan_slots(self._codes, luts, bias, slots, k)
             if self._has_cold:
                 # the cold tail's host slot list and gather run while the
                 # hot scan does; its scan is enqueued behind the hot one
@@ -1133,11 +1157,13 @@ class IVFPQIndex:
             # one device -> host copy of the winners; the JAX package packs
             # values and positions into one int32 transfer because the TPU
             # flushes f32 denormals, which the card does not
-            v, rows = v.cpu().numpy(), rows.cpu().numpy()
-            if cold is not None:
-                vc, rc, sidx, st = cold
-                vc, rc = vc.cpu().numpy(), rc.cpu().numpy()
-        pos = self._rows_to_pos(rows, self._seg_map)
+            with trace.span("ivfpq.winners"):
+                v, rows = v.cpu().numpy(), rows.cpu().numpy()
+                if cold is not None:
+                    vc, rc, sidx, st = cold
+                    vc, rc = vc.cpu().numpy(), rc.cpu().numpy()
+        with trace.span("ivfpq.positions"):
+            pos = self._rows_to_pos(rows, self._seg_map)
         if self.storage == "hybrid":
             self.last_scan_stats["cold_live_slots"] = 0 if cold is None else st["tiles"]
         if cold is None:
@@ -1147,7 +1173,8 @@ class IVFPQIndex:
         # hot and cold lists are disjoint: one stable sort of both top-k
         # lists, hot first, is the merge of every probed slot
         av = np.concatenate([v, vc], axis=1)
-        ap = np.concatenate([pos, self._rows_to_pos(rc, sidx)], axis=1)
+        with trace.span("ivfpq.positions"):
+            ap = np.concatenate([pos, self._rows_to_pos(rc, sidx)], axis=1)
         sel = np.argsort(-av, axis=1, kind="stable")[:, :k]
         return np.take_along_axis(av, sel, axis=1), np.take_along_axis(ap, sel, axis=1)
 

@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 NEG_INF = float("-inf")
@@ -263,6 +264,13 @@ def _lib():
 
 
 def adc_topk_cuda(codes3, luts, seg_ids, q_ids, valid_cnt, kp: int):
+    """Kernel 3; the ``adc_topk`` span runs from here to the launcher's
+    return."""
+    with trace.span("adc_topk", device=codes3.device, slots=seg_ids.shape[0], kp=kp):
+        return _adc_topk_launch(codes3, luts, seg_ids, q_ids, valid_cnt, kp)
+
+
+def _adc_topk_launch(codes3, luts, seg_ids, q_ids, valid_cnt, kp: int):
     global launches
     packed = _check_shapes(codes3, luts, seg_ids, q_ids, valid_cnt, kp)
     _check_cuda(codes3, luts, seg_ids=seg_ids, q_ids=q_ids, valid_cnt=valid_cnt)
@@ -341,6 +349,14 @@ def _scan_lib():
 
 
 def adc_scan_cuda(codes3, luts, seg_ids, q_ids, *, transposed: bool):
+    """Kernels 4-6; the ``adc_scan`` span runs from here to the
+    launcher's return."""
+    with trace.span("adc_scan", device=codes3.device, slots=seg_ids.shape[0],
+                    transposed=transposed):
+        return _adc_scan_launch(codes3, luts, seg_ids, q_ids, transposed)
+
+
+def _adc_scan_launch(codes3, luts, seg_ids, q_ids, transposed: bool):
     packed = _check_scan(codes3, luts, seg_ids, q_ids, transposed)
     _check_cuda(codes3, luts, seg_ids=seg_ids, q_ids=q_ids)
     mb, seg = (codes3.shape[1], codes3.shape[2]) if transposed else \

@@ -58,6 +58,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 NEG_INF = float("-inf")
@@ -278,7 +279,13 @@ def _launch_plan(qn: int, n_eff: int, k: int, dtype, device: int, aligned: bool 
 
 
 def _topk_cuda(q, x, n_valid: int, k: int, chunk: int = 0, lane_bits: int = 0):
-    """The kernel; ``lane_bits`` > 0 selects fast mode at this ``chunk``."""
+    """The kernel; ``lane_bits`` > 0 selects fast mode at this ``chunk``.
+    The ``topk`` span runs from here to the launcher's return."""
+    with trace.span("topk", device=x.device, q=q.shape[0], rows=n_valid, k=k):
+        return _topk_launch(q, x, n_valid, k, chunk, lane_bits)
+
+
+def _topk_launch(q, x, n_valid: int, k: int, chunk: int, lane_bits: int):
     global launches, fast_launches
     fast = lane_bits > 0
     if not (q.is_cuda and x.is_cuda and q.device == x.device):

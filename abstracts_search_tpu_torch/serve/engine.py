@@ -46,6 +46,7 @@ from ..index.ivfpq import IVFPQIndex
 from ..index.tune import read_params
 from ..models.registry import get_embedder
 from ..parallel.mesh import Mesh, broadcast
+from ..utils import trace
 from .hydrate import OpenAlexClient
 
 logger = logging.getLogger(__name__)
@@ -451,7 +452,8 @@ class SearchEngine:
     def search(self, query: str, k: int = 10) -> list[dict]:
         self._check_k(k)
         q = self.encode_queries([query])
-        results = [{"id": n, "score": s} for s, n in self._search_ids(q, k)[0]]
+        with trace.span("engine.search", queries=1):
+            results = [{"id": n, "score": s} for s, n in self._search_ids(q, k)[0]]
         self.hydrate_rows([results])
         return results
 
@@ -468,5 +470,5 @@ class SearchEngine:
 
     def search_batch_encoded(self, q, k: int = 10) -> list[list[dict]]:
         """Search half over already-encoded query vectors."""
-        return [[{"id": n, "score": s} for s, n in row]
-                for row in self._search_ids(q, k)]
+        with trace.span("engine.search", queries=len(q)):
+            return [[{"id": n, "score": s} for s, n in row] for row in self._search_ids(q, k)]
