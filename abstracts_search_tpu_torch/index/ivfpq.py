@@ -570,13 +570,18 @@ class IVFPQIndex:
             codes[lo:lo + len(a)] = c
         return assign, codes
 
-    def _encode_dispatch(self, xj: torch.Tensor):
-        """Fused encode of rows already on the card; normalizes there when
-        spherical. Returns tensors on the card, so a caller can dispatch
-        the next chunk before this one's codes download."""
+    def _encode_dispatch(self, xj: torch.Tensor, timing: dict | None = None):
+        """Fused encode of rows on the card: a device chunk, or a host
+        window just uploaded. Normalizes them there when spherical; with
+        ``timing`` (a host window's) under a ``fill.normalize`` span whose
+        host seconds, the enqueue, add to ``normalize_s``. Returns tensors
+        on the card, so a caller can dispatch the next chunk before this
+        one's codes download."""
         x = xj.to(self.device, torch.float32)
         if self.spherical:
-            x = _normalize_rows_t(x)
+            with (contextlib.nullcontext() if timing is None else
+                  _timed(timing, "normalize_s", "fill.normalize", rows=len(x))):
+                x = _normalize_rows_t(x)
         return self._encode_fused(x)
 
     def encode(self, vectors, *, batch_rows: int = 1 << 18,
@@ -585,11 +590,12 @@ class IVFPQIndex:
         u8 in the storage format: 4-bit codes arrive nibble-packed).
 
         ``vectors`` may be a tensor on the card: then the rows never cross
-        to the host, and only the codes download. Host rows pass through
-        ``fill.normalize``, ``fill.upload`` (each host-to-card copy) and
-        ``fill.download`` spans; ``timing`` (the fill's stage seconds)
-        gains the host seconds of the first two as ``normalize_s`` and
-        ``upload_s``."""
+        to the host, and only the codes download. Host rows go up as they
+        are, ``batch_rows`` at a time, and take the same normalisation and
+        encode on the card; each window passes through ``fill.upload``,
+        ``fill.normalize`` and ``fill.download`` spans, and ``timing`` (the
+        fill's stage seconds) gains the host seconds of the first two as
+        ``upload_s`` and ``normalize_s``."""
         if not self.is_trained:
             raise RuntimeError("train() before encode()")
         if isinstance(vectors, torch.Tensor):
@@ -597,9 +603,6 @@ class IVFPQIndex:
             return a.cpu().numpy(), cd.cpu().numpy()
         timing = {} if timing is None else timing
         x = np.asarray(vectors, np.float32)
-        if self.spherical:
-            with _timed(timing, "normalize_s", "fill.normalize", rows=len(x)):
-                x = _normalize_rows(x)
         n = len(x)
         assign = np.empty(n, np.int64)
         codes = np.empty((n, self.code_bytes), np.uint8)
@@ -607,7 +610,7 @@ class IVFPQIndex:
             xh = np.ascontiguousarray(x[lo:lo + batch_rows])
             with _timed(timing, "upload_s", "fill.upload", bytes=xh.nbytes):
                 xc = torch.from_numpy(xh).to(self.device)
-            a, cd = self._encode_fused(xc)
+            a, cd = self._encode_dispatch(xc, timing)
             with trace.span("fill.download"):
                 assign[lo:lo + len(xc)] = a.cpu().numpy()
                 codes[lo:lo + len(xc)] = cd.cpu().numpy()
@@ -644,8 +647,9 @@ class IVFPQIndex:
         the card; a host chunk's whole encode, on the host's clock),
         download (waiting for a device chunk's codes to land), spill
         (``fill.collect``: the chunks' codes kept in RAM, or spilled to
-        disk), pack, install, and on host chunks normalize (rows to unit
-        norm) and upload (host-to-card copies)."""
+        disk), pack, install, and on host chunks upload (host-to-card
+        copies) and normalize (rows to unit norm, on the card: the
+        enqueue)."""
         from ..utils import prefetch_iterator
 
         self._refuse_mutation("fill")

@@ -6,6 +6,10 @@
 - Fill: fed the JAX package's (assignments, codes, positions), the
   port's ``fill_encoded_stream`` writes a ``lists/`` byte-identical to
   the JAX package's fill, in RAM and through the spill.
+- One route for host and card rows: host rows go up as they are and
+  take the device chunks' normalisation and encode, so both give the
+  same assignments, codes and lists bit for bit, and no host row is
+  normalised in numpy.
 - Cross-package search: an index trained and filled by the port, in
   each train mode, saved, opened by the JAX package and searched there
   (``scan_impl="map"``) gives the port's own positions (scores within
@@ -15,6 +19,7 @@
   does not rewrite lists written in place.
 """
 
+import functools
 import json
 import shutil
 
@@ -25,7 +30,9 @@ import torch
 from abstracts_search_tpu.index.ivfpq import IVFPQIndex as JaxIVFPQ
 from abstracts_search_tpu.parallel import build_mesh
 from abstracts_search_tpu_torch.index import IVFPQIndex, index_from_numpy
+from abstracts_search_tpu_torch.index import ivfpq as port_ivfpq
 from abstracts_search_tpu_torch.index.kmeans import _normalize_rows
+from abstracts_search_tpu_torch.utils import trace
 
 N_LISTS, DIM, M, SEG, CHUNK = 16, 32, 8, 32, 128
 LIST_FILES = ("codes.bin", "row_ids.bin", "seg_valid.npy", "seg_start.npy", "seg_cnt.npy",
@@ -127,6 +134,62 @@ def test_fill_encoded_stream_writes_jax_lists(jax_built, tmp_path, spill):
         assert (tmp_path / "port" / "lists" / name).read_bytes() == \
             (ref_dir / name).read_bytes(), name
     assert idx.n == len(x) and idx.fill_stats["rows"] == len(x)
+
+
+def unnormalised(x, seed):
+    """Rows of ``x`` at norms far from 1, and Gaussian rows: the
+    normalisation changes every one of them."""
+    rng = np.random.default_rng(seed)
+    scaled = x[:900] * rng.uniform(0.2, 5.0, (900, 1)).astype(np.float32)
+    return np.concatenate([scaled, 3 * rng.standard_normal((300, DIM))]).astype(np.float32)
+
+
+def filled_lists(idx, groups, batch_rows):
+    """``fill_stream`` over ``groups`` with host windows of ``batch_rows``
+    -> the packed arrays."""
+    idx.encode = functools.partial(IVFPQIndex.encode, idx, batch_rows=batch_rows)
+    idx.fill_stream(iter(groups))
+    p = idx.packed
+    return [np.asarray(a) for a in (p.data, p.row_ids, p.seg_valid, p.seg_start, p.seg_cnt)]
+
+
+@pytest.mark.parametrize("batch_rows", [250, 4096], ids=["windows", "one-window"])
+def test_host_and_card_rows_take_one_route(jax_built, batch_rows):
+    x, jidx, _ = jax_built
+    v = unnormalised(x, 6)
+    idx = port_of(jidx)
+    trace.start()
+    ha, hc = idx.encode(v, batch_rows=batch_rows)
+    spans = trace.collect()
+    da, dc = idx.encode(torch.from_numpy(v).to(idx.device))
+    np.testing.assert_array_equal(ha, da)
+    np.testing.assert_array_equal(hc, dc)
+    # every host row took the card's normalisation, window by window
+    norm = [s["counts"]["rows"] for s in spans if s["name"] == "fill.normalize"]
+    assert sum(norm) == len(v) and len(norm) == -(-len(v) // batch_rows)
+
+    pos = np.arange(len(v), dtype=np.int64)
+    cuts = [(lo, lo + 500) for lo in range(0, len(v), 500)]
+    host = filled_lists(port_of(jidx), [(v[a:b], pos[a:b]) for a, b in cuts], batch_rows)
+    card = filled_lists(port_of(jidx), [(torch.from_numpy(v[a:b]), pos[a:b]) for a, b in cuts],
+                        batch_rows)
+    for h, c in zip(host, card):
+        assert h.dtype == c.dtype and h.tobytes() == c.tobytes()
+
+
+def test_host_rows_are_not_normalised_in_numpy(jax_built, monkeypatch):
+    x, jidx, _ = jax_built
+    v = unnormalised(x, 7)
+
+    def refuse(_):
+        raise AssertionError("host rows normalised in numpy")
+
+    monkeypatch.setattr(port_ivfpq, "_normalize_rows", refuse)
+    idx = port_of(jidx)
+    a, c = idx.encode(v, batch_rows=300)
+    assert a.shape == (len(v),) and c.shape == (len(v), M // 2)
+    idx.fill(v)
+    assert idx.n == len(v) and idx.fill_stats["normalize_s"] > 0
 
 
 def device_source(x, chunk_rows):

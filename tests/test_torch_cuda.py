@@ -497,3 +497,37 @@ def test_fused_encode_kernel_route_matches_plain(cuda):
     gap = ((xr * cb[ka]).sum(1) - (xr * cb[pa]).sum(1)).abs()
     assert bool((gap[differ] <= 1e-5).all()) and int(differ.sum()) < 20
     assert torch.equal(kc[~differ], pc[~differ])
+
+
+def test_host_and_device_groups_fill_alike(cuda):
+    """Host groups of unnormalised rows go up as they are and take the
+    device groups' normalisation and encode on the card: the same
+    assignments and codes, and the same packed lists byte for byte."""
+    from abstracts_search_tpu_torch.index import IVFPQIndex
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n_lists, dim, m, group = 1024, 64, 16, 8192
+    norm = torch.nn.functional.normalize
+    rot, _ = torch.linalg.qr(torch.randn((dim, dim), device=cuda, generator=g))
+    params = (norm(torch.randn((n_lists, dim), device=cuda, generator=g), dim=1).cpu().numpy(),
+              0.05 * torch.randn((m, 16, dim // m), device=cuda, generator=g).cpu().numpy(),
+              rot.cpu().numpy())
+    x = 3 * torch.randn((5 * group, dim), device=cuda, generator=g)
+    xh = x.cpu().numpy()
+    pos = np.arange(len(xh), dtype=np.int64)
+
+    def fill(host):
+        idx = IVFPQIndex(n_lists, dim, pq_m=m, pq_nbits=4, seg_size=64, device=cuda)
+        idx.set_params(*params)
+        idx.fill_stream(iter([(xh[lo:lo + group] if host else x[lo:lo + group],
+                               pos[lo:lo + group]) for lo in range(0, len(xh), group)]))
+        return idx
+
+    host, card = fill(True), fill(False)
+    ha, hc = host.encode(xh[:group])
+    da, dc = card.encode(x[:group])
+    np.testing.assert_array_equal(ha, da)
+    np.testing.assert_array_equal(hc, dc)
+    for name in ("data", "row_ids", "seg_valid", "seg_start", "seg_cnt"):
+        h, c = getattr(host.packed, name), getattr(card.packed, name)
+        assert h.dtype == c.dtype and h.tobytes() == c.tobytes(), name

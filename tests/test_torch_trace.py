@@ -334,9 +334,10 @@ def test_fill_stages_are_spans_and_fill_stats_keep_their_keys(trained):
     (job,) = names["fill.job"]
     assert set(children(spans, job)) == {"fill.encode", "fill.collect", "fill.pack",
                                          "fill.install"}
-    # a host chunk's encode holds its normalisation, uploads and downloads
+    # a host chunk's encode holds, window by window, its upload, the
+    # card's normalisation of it and the download of its codes
     for enc in names["fill.encode"]:
-        assert children(spans, enc) == ["fill.normalize", "fill.upload", "fill.download"]
+        assert children(spans, enc) == ["fill.upload", "fill.normalize", "fill.download"]
     assert len(names["fill.normalize"]) == len(names["fill.upload"]) == len(groups)
     assert [u["counts"] for u in names["fill.upload"]] == [{"bytes": 400 * DIM * 4}] * len(groups)
     # each stage's seconds are the host seconds of its spans; a host
