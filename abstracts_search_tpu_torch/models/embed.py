@@ -36,6 +36,7 @@ import torch
 from ..device import resolve_device
 from ..parallel.mesh import Mesh, all_gather, broadcast
 from ..parallel.sharding import shard_state_dict
+from ..utils import trace
 from .stella import PROMPTS, StellaConfig, StellaEncoder
 
 Tokenizer = Callable[[str], Sequence[int]]
@@ -140,7 +141,8 @@ class EmbeddingPipeline:
         """One padded batch -> [bs, mrl_dim] f32. Over a mesh every rank
         calls this with the same batch: its shard's rows run here and the
         shards' rows are all-gathered (a batch whose rows the shards do not
-        divide runs padded to a multiple of ``n_shard``)."""
+        divide runs padded to a multiple of ``n_shard``). The model's call
+        is the ``encoder.forward`` span (rows, bucket, real tokens)."""
         bs = len(ids)
         if self.mesh is not None and self.mesh.n_shard > 1:
             n_shard, s = self.mesh.n_shard, self.mesh.shard_rank
@@ -151,9 +153,13 @@ class EmbeddingPipeline:
                 mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]), mask.dtype)])
                 mask[bs:, 0] = 1
             ids, mask = ids[s * per:(s + 1) * per], mask[s * per:(s + 1) * per]
+        span = (trace.span("encoder.forward", device=self.device, rows=ids.shape[0],
+                           bucket=ids.shape[1], tokens=int(mask.sum()))
+                if trace.enabled() else trace.OFF)
         with torch.inference_mode():
-            emb = self.model(torch.from_numpy(np.ascontiguousarray(ids)).to(self.device),
-                             torch.from_numpy(np.ascontiguousarray(mask)).to(self.device))
+            with span:
+                emb = self.model(torch.from_numpy(np.ascontiguousarray(ids)).to(self.device),
+                                 torch.from_numpy(np.ascontiguousarray(mask)).to(self.device))
             if self.mesh is not None and self.mesh.n_shard > 1:
                 emb = all_gather(self.mesh.shard_view(), emb).reshape(-1, emb.shape[-1])
             return emb[:bs].cpu().numpy()

@@ -112,6 +112,18 @@ def _rotate_half(x):
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+def _mask_bias(attention_mask, causal: bool):
+    """The additive f32 attention mask [B, 1, T|1, T]: -1e9 on padding
+    always, and above the diagonal when ``causal``."""
+    t = attention_mask.shape[1]
+    allow = attention_mask[:, None, None, :].bool()                   # [B,1,1,S]
+    if causal:
+        tri = torch.ones((t, t), dtype=torch.bool, device=attention_mask.device).tril()
+        allow = allow & tri[None, None]
+    return torch.zeros(allow.shape, dtype=torch.float32,
+                       device=attention_mask.device).masked_fill_(~allow, -1e9)
+
+
 def _apply_rope(x, cos, sin):
     # x: [B, T, H, hd]; cos/sin: [T, hd]
     return x * cos[None, :, None, :] + _rotate_half(x) * sin[None, :, None, :]
@@ -250,14 +262,7 @@ class Qwen2Encoder(nn.Module):
 
         positions = torch.arange(t, device=input_ids.device)
         cos, sin = _rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
-
-        # additive mask: padding always; causal optionally
-        allow = attention_mask[:, None, None, :].bool()               # [B,1,1,S]
-        if self.causal:
-            tri = torch.ones((t, t), dtype=torch.bool, device=input_ids.device).tril()
-            allow = allow & tri[None, None]
-        mask_bias = torch.zeros(allow.shape, dtype=torch.float32,
-                                device=input_ids.device).masked_fill_(~allow, -1e9)
+        mask_bias = _mask_bias(attention_mask, self.causal)
 
         for layer in self.layers:
             x = layer(x, mask_bias, cos, sin)

@@ -162,10 +162,47 @@ def _load_mrl_head(cfg: Config, sd):
     )
 
 
+# a deepseek_v3 config.json's settings the port's Moonlight backbone
+# implements, and no other
+_DEEPSEEK_FIXED = {"q_lora_rank": None, "n_group": 1, "topk_group": 1, "scoring_func": "sigmoid",
+                   "topk_method": "noaux_tc", "hidden_act": "silu", "moe_layer_freq": 1,
+                   "rope_scaling": None, "attention_bias": False}
+
+
+def _moonlight_config(hf: dict):
+    """A ``deepseek_v3`` ``config.json`` -> the port's MoonlightConfig;
+    refused where it asks for what the backbone does not implement."""
+    from .moonlight import MoonlightConfig
+
+    odd = {k: hf.get(k) for k, v in _DEEPSEEK_FIXED.items() if hf.get(k, v) != v}
+    if odd:
+        raise ValueError(f"the Moonlight backbone implements {_DEEPSEEK_FIXED}; this "
+                         f"config.json asks for {odd}")
+    return MoonlightConfig(
+        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        moe_intermediate_size=hf["moe_intermediate_size"], num_layers=hf["num_hidden_layers"],
+        first_k_dense_replace=hf["first_k_dense_replace"],
+        num_heads=hf["num_attention_heads"], kv_lora_rank=hf["kv_lora_rank"],
+        qk_nope_head_dim=hf["qk_nope_head_dim"], qk_rope_head_dim=hf["qk_rope_head_dim"],
+        v_head_dim=hf["v_head_dim"], n_routed_experts=hf["n_routed_experts"],
+        num_experts_per_tok=hf["num_experts_per_tok"], n_shared_experts=hf["n_shared_experts"],
+        routed_scaling_factor=hf["routed_scaling_factor"], norm_topk_prob=hf["norm_topk_prob"],
+        rope_theta=hf.get("rope_theta", 10_000.0), rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+    )
+
+
 def _backbone_config(hf: dict):
-    """A HF ``config.json`` -> the port's Qwen2Config."""
+    """A HF ``config.json`` -> the port's backbone config, by its
+    ``model_type``: ``qwen2`` (the default) a Qwen2Config, ``deepseek_v3``
+    a MoonlightConfig."""
     from .qwen2 import Qwen2Config
 
+    model_type = hf.get("model_type", "qwen2")
+    if model_type == "deepseek_v3":
+        return _moonlight_config(hf)
+    if model_type != "qwen2":
+        raise ValueError(f"no backbone for model_type {model_type!r} (qwen2, deepseek_v3)")
     return Qwen2Config(
         vocab_size=hf["vocab_size"],
         hidden_size=hf["hidden_size"],
@@ -341,6 +378,9 @@ def _stella_config_to_json(scfg) -> dict:
 
     bb = {k: v for k, v in dataclasses.asdict(scfg.backbone).items()
           if k not in ("dtype", "param_dtype")}
+    model_type = getattr(scfg.backbone, "MODEL_TYPE", None)
+    if model_type is not None:
+        bb["model_type"] = model_type
     return {
         "backbone": bb,
         "mrl_dim": scfg.mrl_dim,
@@ -351,11 +391,15 @@ def _stella_config_to_json(scfg) -> dict:
 
 
 def _stella_config_from_json(d: dict):
+    from .moonlight import MoonlightConfig
     from .qwen2 import Qwen2Config
     from .stella import StellaConfig
 
+    bb = dict(d["backbone"])
+    backbone = {"qwen2": Qwen2Config, "deepseek_v3": MoonlightConfig}[
+        bb.pop("model_type", "qwen2")]
     return StellaConfig(
-        backbone=Qwen2Config(**d["backbone"]), mrl_dim=d["mrl_dim"],
+        backbone=backbone(**bb), mrl_dim=d["mrl_dim"],
         pooling=d["pooling"], causal=d["causal"], normalize=d["normalize"],
     )
 

@@ -5,6 +5,10 @@ states -> masked pooling (mean by default) -> ``vector_linear``
 (hidden -> mrl_dim, with bias, in the compute dtype) -> f32 -> L2
 normalisation. Queries carry the ``s2p_query`` prompt; corpus documents
 are embedded bare. The published corpus uses the 1024-d MRL head.
+
+The backbone is whichever ``StellaConfig.backbone`` names: a
+``Qwen2Config`` (stella's own) or a ``MoonlightConfig`` (Moonlight-16B-A3B,
+``models/moonlight.py``, behind the same pooling and head).
 """
 
 from __future__ import annotations
@@ -15,7 +19,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .qwen2 import Qwen2Config, Qwen2Encoder, init_random_
+from . import moonlight, qwen2
+from .moonlight import MoonlightConfig, MoonlightEncoder
+from .qwen2 import Qwen2Config, Qwen2Encoder
 
 # stella's config_sentence_transformers.json prompts, byte for byte; the
 # serving setting PROMPT_NAME selects one
@@ -30,7 +36,8 @@ PROMPTS = {
 
 @dataclasses.dataclass(frozen=True)
 class StellaConfig:
-    backbone: Qwen2Config = dataclasses.field(default_factory=Qwen2Config.stella_1_5b)
+    backbone: Qwen2Config | MoonlightConfig = dataclasses.field(
+        default_factory=Qwen2Config.stella_1_5b)
     mrl_dim: int = 1024          # published MRL heads: 512..8192; corpus uses 1024
     pooling: str = "mean"        # "mean" | "last" | "cls"
     causal: bool = True
@@ -62,23 +69,28 @@ def pool_hidden(hidden, attention_mask, mode: str):
 class StellaEncoder(nn.Module):
     """(input_ids [B,T], attention_mask [B,T]) -> [B, mrl_dim] f32.
 
-    Parameters: ``backbone.*`` (a ``Qwen2Encoder``) and
+    Parameters: ``backbone.*`` (a ``Qwen2Encoder`` or a
+    ``MoonlightEncoder``, as ``cfg.backbone`` is) and
     ``vector_linear.{weight,bias}``, uninitialised until
     ``load_state_dict`` or ``init_random_``. ``tp``: the backbone's tp
-    group (``Qwen2Encoder``); pooling and ``vector_linear`` are replicated
-    on every rank of it."""
+    group (Qwen2 only: ``MoonlightEncoder`` refuses one); pooling and
+    ``vector_linear`` are replicated on every rank of it."""
 
     def __init__(self, cfg: StellaConfig, *, device=None, tp=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.backbone = Qwen2Encoder(cfg.backbone, causal=cfg.causal, device=device, tp=tp)
+        backbone = (MoonlightEncoder if isinstance(cfg.backbone, MoonlightConfig)
+                    else Qwen2Encoder)
+        self.backbone = backbone(cfg.backbone, causal=cfg.causal, device=device, tp=tp)
         self.vector_linear = nn.Linear(cfg.backbone.hidden_size, cfg.mrl_dim, bias=True,
                                        dtype=cfg.backbone.dtype, device="meta")
         self.vector_linear.to_empty(device=device)
 
     def init_random_(self, generator: torch.Generator, std: float = 0.02):
-        return init_random_(self, generator, self.cfg.backbone.param_dtype, std)
+        init = (moonlight.init_random_ if isinstance(self.backbone, MoonlightEncoder)
+                else qwen2.init_random_)
+        return init(self, generator, self.cfg.backbone.param_dtype, std)
 
     def forward(self, input_ids, attention_mask):
         hidden = self.backbone(input_ids, attention_mask)

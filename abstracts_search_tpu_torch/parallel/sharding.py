@@ -61,10 +61,14 @@ class TPLayout:
 
 def tp_layout(cfg, tp: int = 1, tp_rank: int = 0) -> TPLayout:
     """The layout of rank ``tp_rank`` of ``tp`` for a Qwen2 config (or a
-    stella config's backbone). Refuses a ``tp`` that does not divide the
+    stella config's backbone); any other backbone (Moonlight's) is
+    refused. Refuses a ``tp`` that does not divide the
     query heads and the intermediate size, or whose ranks would share KV
     heads unevenly (``kv % tp`` and ``tp % kv`` both nonzero)."""
     cfg = getattr(cfg, "backbone", cfg)
+    if getattr(cfg, "MODEL_TYPE", "qwen2") != "qwen2":
+        raise ValueError(f"no tensor-parallel rules for a {cfg.MODEL_TYPE} backbone: it "
+                         f"is held whole on one card")
     h, kv, inter = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
     if tp < 1 or h % tp or inter % tp:
         raise ValueError(f"tp={tp} must divide num_heads={h} and "

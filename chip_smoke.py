@@ -24,6 +24,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
           ADC kernels (3-5 at PQ128x4, 4 and 6 at PQ64x8) on tie-heavy
           LUTs and on q_ids query-major, alternating and shuffled (bit for
           bit).
+  experts the grouped SwiGLU expert kernel (ops/experts.py, Triton; the
+          Moonlight encoder's routed experts: 64 experts, H 2,048, I
+          1,408, bf16) against its plain route at the Moonlight cell's
+          forwards, 32 texts of 256 and of 512 tokens at 6 experts a
+          token (49,152 and 98,304 token-expert pairs), loads by Zipf's
+          law over a shuffled expert order with an eighth of the experts
+          idle; fails beyond 2e-3 of the largest output. CUDA-event and
+          profiler times beside the bound and the plain route's.
   flat    bench.py's configuration: 2,097,152 x 1024 bf16 unit vectors,
           128 queries, k 10, chunk 4096. The fast-mode top-k kernel
           against its plain version, QPS by CUDA events over chained
@@ -209,8 +217,9 @@ legacy, legacy_pq8, host_pq8) runs with every launch count
 set to 0 just before it and read just after (in each rank process for the
 sharded paths, per command, summed over the ranks and commands), and
 fails if one of its kernels never launched. Then a ``{"kernels": [...]}`` line with one row per TPU
-kernel (launches from the paths; times and bounds at the inputs the
-paths gave each kernel: ``ms`` by CUDA events around one wrapper call,
+kernel and one for the port's grouped expert kernel (launches from the
+paths, the expert kernel's from its phase's calls held against the plain
+route; times and bounds at the inputs the paths gave each kernel: ``ms`` by CUDA events around one wrapper call,
 host work between the events included, ``device_ms`` the kernel's own
 time under torch.profiler over the same calls), the card's nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.
@@ -267,11 +276,17 @@ KERNELS = {
     "adc_kernel": ("adc_scan (row-major, bytes)", CSRC + "adc_scan.cu",
                    "abstracts_search_tpu/ops/adc.py:119"),
 }
+# the port's own kernel, with no TPU counterpart
+KERNELS["experts"] = ("grouped_swiglu (experts)", "abstracts_search_tpu_torch/ops/experts.py",
+                      "none: the JAX package has no sparse-expert layer")
+# Moonlight-16B-A3B's routed experts: count, hidden and expert widths, a token's choices
+EXPERTS_E, EXPERTS_H, EXPERTS_I, EXPERTS_TOP = 64, 2048, 1408, 6
 # the kernel functions each row's wrapper launches, as the profiler names them
 DEVICE_NAMES = {"topk": ("range_kernel", "topk_merge_kernel", "topk_select_kernel"),
                 "topk_fast": ("range_kernel", "topk_merge_kernel", "topk_select_kernel"),
                 "adc_topk": ("adc_topk_kernel",), "adc_kernel_t": ("adc_cols_kernel",),
-                "adc_kernel_packed4": ("adc_rows_kernel",), "adc_kernel": ("adc_rows_kernel",)}
+                "adc_kernel_packed4": ("adc_rows_kernel",), "adc_kernel": ("adc_rows_kernel",),
+                "experts": ("experts_gate_up", "experts_down")}
 
 
 def emit(obj) -> None:
@@ -349,9 +364,9 @@ def counts() -> dict:
 
 
 def reset_counts() -> None:
-    from abstracts_search_tpu_torch.ops import adc, topk
+    from abstracts_search_tpu_torch.ops import adc, experts, topk
 
-    topk.launches = topk.fast_launches = adc.launches = 0
+    topk.launches = topk.fast_launches = adc.launches = experts.launches = 0
     for key in adc.scan_launches:
         adc.scan_launches[key] = 0
 
@@ -765,6 +780,62 @@ def check_kernels(seed: int):
     k4["launches"] = k4_launches
     out["adc_edges"] = adc_edges(g)
     return out, k4
+
+
+def experts_phase(seed: int):
+    """The grouped expert kernel against its plain route at the Moonlight
+    cell's forwards (module docstring). -> (cases, the kernels row: the
+    larger shape, its launches those of the calls held against the plain
+    route)."""
+    from abstracts_search_tpu_torch.ops import experts
+
+    e, h, inter = EXPERTS_E, EXPERTS_H, EXPERTS_I
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = np.random.default_rng(seed)
+    w13 = (0.02 * torch.randn((e, 2 * inter, h), device="cuda", generator=g)).to(torch.bfloat16)
+    w2 = (0.02 * torch.randn((e, h, inter), device="cuda", generator=g)).to(torch.bfloat16)
+    cases = []
+    reset_counts()
+    launched = 0
+    for texts, tokens in ((32, 256), (32, 512)):
+        pairs = texts * tokens * EXPERTS_TOP
+        p = 1.0 / np.arange(1, e + 1)
+        p[r.choice(e, e // 8, replace=False)] = 0.0
+        loads = r.multinomial(pairs, r.permutation(p / p.sum()))
+        x = torch.randn((pairs, h), device="cuda", generator=g).to(torch.bfloat16)
+        offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(loads)]).astype(np.int32)).cuda()
+        run = lambda impl: experts.grouped_swiglu(x, offsets, w13, w2, impl=impl)  # noqa: E731
+        before = counts()["experts"]
+        got, want = run("cuda"), run("torch")
+        torch.cuda.synchronize()
+        launched += counts()["experts"] - before
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        touched = int((loads > 0).sum())
+        # operations: gate, up and down of every pair; bytes: each touched
+        # expert's weights once, the rows in (bf16) and out (f32) once
+        b, by = bound(2 * touched * 3 * h * inter + 6 * pairs * h, 2 * pairs * 3 * h * inter,
+                      "bf16")
+        case = {"shape": [pairs, e, h, inter], "texts": texts, "tokens": tokens,
+                "max_rows": int(loads.max()), "idle_experts": e - touched,
+                "max_abs_err": err, "tolerance": 2e-3 * scale,
+                "ms": cuda_ms(lambda: run("cuda")),
+                "device_ms": device_ms(lambda: run("cuda"), DEVICE_NAMES["experts"]),
+                "plain_ms": cuda_ms(lambda: run("torch"), reps=3, warmup=1),
+                "bound_ms": b, "bound_by": by, "library_ms": None}
+        cases.append(case)
+        # f32 sums in another order; h rounded to bf16 may land one bf16
+        # step apart where the sums straddle a rounding boundary
+        if err > 2e-3 * scale:
+            raise AssertionError(f"the expert kernel disagrees with its plain route: {case}")
+        del x, got, want
+    if launched != 2 * len(cases):
+        raise AssertionError(f"the expert kernel launched {launched} kernels in "
+                             f"{len(cases)} calls (two a call)")
+    row = {k: v for k, v in cases[-1].items() if k not in ("texts", "tokens", "tolerance")}
+    row.update(launches=launched, launches_from="experts phase, the calls held against the "
+                                                "plain route (timing calls not counted): no "
+                                                "search path runs the Moonlight encoder")
+    return cases, row
 
 
 # -- flat search (bench.py's configuration) ------------------------------------------
@@ -3576,7 +3647,7 @@ def kernels_line(rows: dict, by_path: dict) -> list:
     out = []
     for key, (name, source, replaces) in KERNELS.items():
         row = dict(rows[key])
-        if key != "adc_kernel_t":
+        if "launches" not in row:
             paths = {p: c[key] for p, c in by_path.items() if c.get(key)}
             row["launches"] = sum(paths.values())
             row["launches_by_path"] = paths
@@ -3592,9 +3663,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-rows", type=int, default=206_962_688)
     ap.add_argument("--phases",
-                    default="device,build,kernels,flat,index_build,sharded_build,ivf_flat,"
-                            "ingest,index,serve,stages_batch256,encoder,hybrid,host,sharded,"
-                            "sharded_encoder,legacy",
+                    default="device,build,kernels,experts,flat,index_build,sharded_build,"
+                            "ivf_flat,ingest,index,serve,stages_batch256,encoder,hybrid,host,"
+                            "sharded,sharded_encoder,legacy",
                     help="comma-separated subset, for development runs")
     # one rank of phase sharded, sharded_build or sharded_encoder (started by
     # the phase itself)
@@ -3668,6 +3739,12 @@ def main() -> int:
         emit({"phase": "kernels", "seconds": time.perf_counter() - t, **res,
               "topk_probe_k": {name: {key: v for key, v in row.items() if key != "plan"}
                                for name, row in probe_rows.items()}})
+
+    if "experts" in phases:
+        t = time.perf_counter()
+        res, rows["experts"] = experts_phase(args.seed)
+        emit({"phase": "experts", "seconds": time.perf_counter() - t, "cases": res,
+              "kernels_row": rows["experts"]})
 
     if "flat" in phases:
         t = time.perf_counter()
@@ -3840,8 +3917,8 @@ def main() -> int:
 
     if set(KERNELS) <= set(rows):
         emit({"kernels": kernels_line(rows, by_path)})
-    elif {"kernels", "flat", "index_build", "ivf_flat", "index", "serve", "hybrid", "host",
-          "legacy"} <= phases:
+    elif {"kernels", "experts", "flat", "index_build", "ivf_flat", "index", "serve", "hybrid",
+          "host", "legacy"} <= phases:
         raise AssertionError(f"kernel rows missing: {set(KERNELS) - set(rows)}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
