@@ -64,7 +64,10 @@ The build (``train`` -> ``save`` -> ``load`` -> ``fill_stream`` ->
   next chunk dispatched before this one's codes download; codes,
   assignments and positions collect in RAM or spill to disk, then pack
   into transposed CSR lists (``lists.py``) written straight to the
-  artifact.
+  artifact. An in-memory fill on the card whose pack fits its free
+  memory keeps the codes there instead and packs them there; the host
+  keeps one download of the lists, and the install keeps the packed
+  payload where the lists stay on the card.
 
 The build over a mesh (every rank calls ``train`` and ``fill_stream``
 with the same arguments):
@@ -86,8 +89,10 @@ with the same arguments):
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import logging
+import mmap
 import shutil
 import threading
 import time
@@ -106,8 +111,10 @@ from ..parallel.topk_merge import merge_topk_all_gather
 from ..utils import trace
 from ..utils.trace import StageTimer
 from .kmeans import KMeans, _normalize_rows, _normalize_rows_t, _round_up
-from .lists import (CSRLists, load_lists, pack_lists, pack_lists_external, ragged_ranges,
-                    rank_shard, save_lists)
+from .lists import (CSRLists, load_lists, pack_lists_external, ragged_ranges, rank_shard,
+                    save_lists)
+# the in-memory fill's one pack, on the host or on the card
+from .lists import pack_lists_torch as pack_lists
 from .opq import OPQ, _rotate
 from .pq import ProductQuantizer
 
@@ -124,6 +131,38 @@ def _timed(timing: dict, key: str, name: str, **counts):
     with trace.measure(name, **counts) as sp:
         yield sp
     timing[key] = timing.get(key, 0.0) + sp.host_s
+
+
+def _to_host(v) -> np.ndarray:
+    """``v`` as a host array. A card tensor lands in anonymous memory
+    mapped with ``MAP_POPULATE``, its pages made in that one call: left to
+    the copy, one thread faults them in one at a time, at a fraction of
+    the copy's speed."""
+    if not isinstance(v, torch.Tensor):
+        return np.asarray(v)
+    if v.device.type == "cpu" or not v.numel():
+        return v.cpu().numpy()
+    buf = mmap.mmap(-1, v.numel() * v.element_size(),
+                    flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS | mmap.MAP_POPULATE)
+    out = torch.frombuffer(buf, dtype=v.dtype).view(v.shape)
+    out.copy_(v)
+    return out.numpy()
+
+
+def _append(buf: torch.Tensor | None, n: int, v: torch.Tensor) -> torch.Tensor:
+    """``buf`` with ``v`` at rows ``n:``, or, where ``v`` does not fit, a
+    new buffer of twice the rows holding ``buf[:n]`` and ``v``. The card
+    pack collects a fill's chunks so: each chunk kept as an allocation of
+    its own would split the cached blocks that the next chunk's encode
+    takes again, and kernel 1's call would then wait on ``cudaMalloc``."""
+    m = n + len(v)
+    if buf is None or m > len(buf):
+        grown = torch.empty((2 * m,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+        if buf is not None:
+            grown[:n] = buf[:n]
+        buf = grown
+    buf[n:m] = v
+    return buf
 
 
 def _take(arr: np.ndarray, rows, lo: int, hi: int, out=None):
@@ -585,9 +624,10 @@ class IVFPQIndex:
         return self._encode_fused(x)
 
     def encode(self, vectors, *, batch_rows: int = 1 << 18,
-               timing: dict | None = None) -> tuple[np.ndarray, np.ndarray]:
+               timing: dict | None = None, _on_card: bool = False):
         """-> (list assignment [N] i64, residual PQ codes [N, code_bytes]
-        u8 in the storage format: 4-bit codes arrive nibble-packed).
+        u8 in the storage format: 4-bit codes arrive nibble-packed), as
+        numpy arrays.
 
         ``vectors`` may be a tensor on the card: then the rows never cross
         to the host, and only the codes download. Host rows go up as they
@@ -595,25 +635,35 @@ class IVFPQIndex:
         encode on the card; each window passes through ``fill.upload``,
         ``fill.normalize`` and ``fill.download`` spans, and ``timing`` (the
         fill's stage seconds) gains the host seconds of the first two as
-        ``upload_s`` and ``normalize_s``."""
+        ``upload_s`` and ``normalize_s``. ``_on_card`` (the fill's card
+        pack): both outputs stay tensors on the card, and nothing
+        downloads."""
         if not self.is_trained:
             raise RuntimeError("train() before encode()")
         if isinstance(vectors, torch.Tensor):
             a, cd = self._encode_dispatch(vectors)
-            return a.cpu().numpy(), cd.cpu().numpy()
+            return (a, cd) if _on_card else (a.cpu().numpy(), cd.cpu().numpy())
         timing = {} if timing is None else timing
         x = np.asarray(vectors, np.float32)
         n = len(x)
-        assign = np.empty(n, np.int64)
-        codes = np.empty((n, self.code_bytes), np.uint8)
+        if _on_card:
+            assign = torch.empty(n, dtype=torch.int64, device=self.device)
+            codes = torch.empty((n, self.code_bytes), dtype=torch.uint8, device=self.device)
+        else:
+            assign = np.empty(n, np.int64)
+            codes = np.empty((n, self.code_bytes), np.uint8)
         for lo in range(0, n, batch_rows):
             xh = np.ascontiguousarray(x[lo:lo + batch_rows])
             with _timed(timing, "upload_s", "fill.upload", bytes=xh.nbytes):
                 xc = torch.from_numpy(xh).to(self.device)
             a, cd = self._encode_dispatch(xc, timing)
+            hi = lo + len(xc)
+            if _on_card:
+                assign[lo:hi], codes[lo:hi] = a, cd
+                continue
             with trace.span("fill.download"):
-                assign[lo:lo + len(xc)] = a.cpu().numpy()
-                codes[lo:lo + len(xc)] = cd.cpu().numpy()
+                assign[lo:hi] = a.cpu().numpy()
+                codes[lo:hi] = cd.cpu().numpy()
         return assign, codes
 
     def fill(self, vectors: np.ndarray, positions: np.ndarray | None = None) -> None:
@@ -632,7 +682,11 @@ class IVFPQIndex:
         With ``lists_dir`` set (the production path), per-chunk codes,
         assignments and positions spill to disk as they stream and the
         final pack writes the memmap artifact there directly: host RSS
-        stays O(corpus/80). Without it, everything stays in RAM.
+        stays O(corpus/80). Without it, everything stays in RAM, or, on
+        the card where the pack fits its free memory less
+        ``AUTO_HEADROOM_BYTES``, on the card: the codes never download,
+        the pack runs there, and the install keeps its payload where the
+        lists stay on the card (the card pack; ``fill_encoded_stream``).
         ``prefetch`` chunks are pulled ahead on a reader thread.
 
         Over a mesh of several ranks each rank passes only its own chunks,
@@ -649,7 +703,7 @@ class IVFPQIndex:
         (``fill.collect``: the chunks' codes kept in RAM, or spilled to
         disk), pack, install, and on host chunks upload (host-to-card
         copies) and normalize (rows to unit norm, on the card: the
-        enqueue)."""
+        enqueue); ``pack_on_card`` counts the rows the card packed."""
         from ..utils import prefetch_iterator
 
         self._refuse_mutation("fill")
@@ -657,16 +711,18 @@ class IVFPQIndex:
         with trace.span("fill.job"):
             stream = prefetch_iterator(iter(chunks), depth=prefetch)
             on_card = self.device.type == "cuda"
+            room = None if lists_dir is not None else self._card_room()
             timing = dict.fromkeys(("normalize_s", "upload_s", "encode_s", "download_s"), 0.0)
             encodes = []    # device chunks' encode spans, resolved once the fill has ended
 
             def dispatch(vectors):
-                """Enqueue the encode and the copy of its outputs to pinned
-                host memory; -> (host assignments, host codes, copy event)."""
+                """Enqueue the encode and, for the host pack on the card, the
+                copy of its outputs to pinned host memory; -> (assignments,
+                codes, copy event or None)."""
                 with trace.measure("fill.encode", device=self.device) as enc:
                     a, cd = self._encode_dispatch(vectors)
                 encodes.append(enc)
-                if not on_card:
+                if not on_card or room is not None:
                     return a, cd, None
                 ah = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
                 ch = torch.empty(cd.shape, dtype=cd.dtype, pin_memory=True)
@@ -677,11 +733,13 @@ class IVFPQIndex:
                 return ah, ch, done
 
             def drain(p):
-                (ah, ch, done), pos = p
+                (a, cd, done), pos = p
+                if room is not None:
+                    return a, cd, pos
                 if done is not None:
                     with _timed(timing, "download_s", "fill.download"):
                         done.synchronize()
-                return ah.numpy(), ch.numpy(), pos
+                return a.numpy(), cd.numpy(), pos
 
             def encoded():
                 pending = None
@@ -693,7 +751,8 @@ class IVFPQIndex:
                             yield drain(pending)
                             pending = None
                         with _timed(timing, "encode_s", "fill.encode"):
-                            assign, codes = self.encode(vectors, timing=timing)
+                            assign, codes = self.encode(vectors, timing=timing,
+                                                        _on_card=room is not None)
                         yield assign, codes, np.asarray(positions)
                         continue
                     if pending is not None:
@@ -702,17 +761,24 @@ class IVFPQIndex:
                 if pending is not None:
                     yield drain(pending)
 
-            self.fill_encoded_stream(encoded(), lists_dir=lists_dir)
+            self.fill_encoded_stream(encoded(), lists_dir=lists_dir, _room=room)
             timing["encode_s"] += sum(enc.device_seconds() for enc in encodes)
             self.fill_stats.update(timing)
 
-    def fill_encoded_stream(self, chunks, *, lists_dir: str | Path | None = None) -> None:
+    def fill_encoded_stream(self, chunks, *, lists_dir: str | Path | None = None,
+                            _room: int | None = None) -> None:
         """Fill from pre-encoded ``(assignments, codes, positions)``
         chunks: the spill + pack + install tail shared with
         ``fill_stream``. A filled index is not filled again: refills go
         through the empty (trained) artifact. Over a mesh each rank passes
         its own chunks, ``i % W == rank`` of the stream, in order, and the
-        same ``lists_dir`` (required at W > 1)."""
+        same ``lists_dir`` (required at W > 1).
+
+        ``_room`` (``fill_stream``'s card pack): the card's free bytes less
+        the headroom, with each chunk's codes and assignments tensors on
+        the card. They collect and pack there while the pack's bytes
+        (``_card_pack_bytes``) fit ``_room``; else they download, and the
+        same pack (``lists.pack_lists_torch``) runs on the host."""
         self._refuse_mutation("fill")
         if not self.is_trained:
             raise RuntimeError("train() before fill()")
@@ -728,26 +794,89 @@ class IVFPQIndex:
             return self._fill_spilled(iter(chunks), Path(lists_dir))
         t_start = time.perf_counter()
         timing = {"spill_s": 0.0}
-        codes_parts, assign_parts, pos_parts = [], [], []
+        room = _room
+        parts = ([], [], [])    # codes, assignments and positions on the host
+        card = (None, None)     # while room is set: codes and assignments on the card, rows :n
+        n = 0
+
+        def to_host():
+            nonlocal room, card
+            room = None
+            for p, buf in zip(parts, card):
+                if buf is not None:
+                    p.append(_to_host(buf[:n]))
+            card = (None, None)
+
         for assign, codes, positions in chunks:
             with _timed(timing, "spill_s", "fill.collect"):
-                codes_parts.append(np.asarray(codes, np.uint8))
-                assign_parts.append(np.asarray(assign))
-                pos_parts.append(np.asarray(positions))
-        with _timed(timing, "pack_s", "fill.pack"):
-            packed = pack_lists(
-                np.concatenate(codes_parts),
-                np.concatenate(pos_parts),
-                np.concatenate(assign_parts),
-                self.n_lists,
-                seg_size=self.seg_size,
-                transposed=True,
-            )
+                parts[2].append(np.asarray(positions))
+                m = n + len(codes)
+                # past the room at the fewest segments these rows can take,
+                # the whole stream packs on the host
+                if room is not None and self._card_pack_bytes(m, -(-m // self.seg_size)) > room:
+                    to_host()
+                if room is None:
+                    parts[0].append(_to_host(codes))
+                    parts[1].append(_to_host(assign))
+                else:
+                    card = tuple(_append(buf, n, v) for buf, v in zip(card, (codes, assign)))
+                n = m
+        if room is not None:
+            with _timed(timing, "spill_s", "fill.collect"):
+                counts = torch.bincount(card[1][:n], minlength=self.n_lists)
+                n_segs = int(((counts + self.seg_size - 1) // self.seg_size).sum())
+                if self._card_pack_bytes(n, max(n_segs, 1)) > room:
+                    to_host()
+        on_card = room is not None
+        payload = []    # the packed payload on the card, for the install alone
+        with _timed(timing, "pack_s", "fill.pack", rows=n, on_card=int(on_card)):
+            if on_card:
+                codes, assign = (buf[:n] for buf in card)
+                card = None
+                positions = torch.as_tensor(np.concatenate(parts[2]), dtype=torch.int64,
+                                            device=codes.device)
+            else:
+                codes, assign, positions = (
+                    torch.from_numpy(np.concatenate(p).astype(t, copy=False))
+                    for p, t in zip(parts, (np.uint8, np.int64, np.int64)))
+            lists = pack_lists(codes, positions, assign, self.n_lists,
+                               seg_size=self.seg_size, counts=counts if on_card else None)
+            del codes, assign, positions
+            packed = dataclasses.replace(lists, **{
+                f: _to_host(getattr(lists, f))
+                for f in ("data", "row_ids", "seg_valid", "seg_start", "seg_cnt")})
+            if on_card:
+                payload.append(lists.data)
+            del lists
         seconds = time.perf_counter() - t_start
         with _timed(timing, "install_s", "fill.install"):
-            self._install(packed)
+            # the payload's one reference passes to the install, which drops
+            # it before any upload where the lists do not stay on the card
+            self._install(packed, payload.pop() if payload else None)
         self.fill_stats = {"rows": int(packed.n_rows), "seconds": seconds,
-                           "rows_per_s": packed.n_rows / seconds if seconds else 0.0, **timing}
+                           "rows_per_s": packed.n_rows / seconds if seconds else 0.0, **timing,
+                           "pack_on_card": n if on_card else 0}
+
+    def _card_room(self) -> int | None:
+        """Bytes of this index's card that an in-memory fill may take for
+        its card pack, its free memory less ``AUTO_HEADROOM_BYTES``; None
+        off the card."""
+        if self.device.type != "cuda":
+            return None
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return free - self.AUTO_HEADROOM_BYTES
+
+    def _card_pack_bytes(self, n: int, n_segs: int) -> int:
+        """A bound on the card's bytes that an in-memory fill of ``n`` rows
+        in ``n_segs`` segments holds from its collection to the end of its
+        card pack: the collection's buffers, which double and so hold up to
+        2n rows of codes and i64 assignments (3n while they grow: less than
+        the rest of the bound); the i64 positions; the pack's i64 vectors
+        of n (the sort's keys, indices and buffers, then the slots and their
+        temporaries: 6 at most); the stage, the transposed payload and the
+        row ids."""
+        mb = self.code_bytes
+        return n * (2 * (mb + 8) + 8 + 6 * 8) + n_segs * self.seg_size * (2 * mb + 4)
 
     def _fill_spilled(self, stream, lists_dir: Path) -> None:
         """The fill's tail with ``lists_dir`` (the production path, in one
@@ -817,12 +946,16 @@ class IVFPQIndex:
             self._install(packed)
         self.fill_stats = {"rows": int(packed.n_rows), "seconds": seconds,
                            "rows_per_s": packed.n_rows / seconds if seconds else 0.0,
-                           **timing, "barrier_s": wait_s, "rank": rank,
+                           **timing, "pack_on_card": 0, "barrier_s": wait_s, "rank": rank,
                            "mesh_size": w, "rank_rows": n_local, "rank_chunks": len(rows)}
 
     # -- install -----------------------------------------------------------------
 
-    def _install(self, packed: CSRLists) -> None:
+    def _install(self, packed: CSRLists, data: torch.Tensor | None = None) -> None:
+        """Serve ``packed`` in this index's storage. ``data``: its payload
+        already on this card (the in-memory fill's card pack), which "auto"
+        counts as free: kept as it is where the storage is "device",
+        instead of uploaded again, and dropped otherwise."""
         if packed.seg_size != self.seg_size:
             raise ValueError(
                 f"index meta seg_size={self.seg_size} != packed lists "
@@ -844,12 +977,15 @@ class IVFPQIndex:
         # this rank's lists: every list on one rank
         owned = self.mesh.owned(packed.n_lists)
         if self.storage == "auto":
-            self.storage = self._resolve_auto_storage(packed, seg_bytes, owned)
+            self.storage = self._resolve_auto_storage(
+                packed, seg_bytes, owned, 0 if data is None else data.nbytes)
+        if self.storage != "device":
+            data = None
         self._codes = self._seg_map = None
         self._has_cold = False
         self._seg_start_h = np.asarray(packed.seg_start, np.int64)
         if self.storage == "device":
-            self._install_resident(packed, None if self.mesh.size == 1 else owned)
+            self._install_resident(packed, None if self.mesh.size == 1 else owned, data)
         else:
             if self.storage == "hybrid":
                 hot = self._pick_hot_lists(packed, seg_bytes, owned)
@@ -872,16 +1008,17 @@ class IVFPQIndex:
                                     torch.from_numpy(np.asarray(packed.seg_valid, np.int32)[rows])
                                     .to(dev))
 
-    def _install_resident(self, packed: CSRLists, lists) -> None:
-        """Upload every list (``lists`` None) or only the segments of the
-        ``lists`` (a [n_lists] mask: this rank's lists, of those the hot
-        ones in hybrid storage), compacted in list order, with a device
-        CSR in which the other lists count 0; ``_seg_map`` maps a
-        compacted segment to its canonical one, so rows still resolve
-        through ``row_ids``."""
+    def _install_resident(self, packed: CSRLists, lists, data=None) -> None:
+        """Upload every list (``lists`` None; ``data``: the payload
+        already there) or only the segments of the ``lists`` (a [n_lists]
+        mask: this rank's lists, of those the hot ones in hybrid storage),
+        compacted in list order, with a device CSR in which the other
+        lists count 0; ``_seg_map`` maps a compacted segment to its
+        canonical one, so rows still resolve through ``row_ids``."""
         dev = self.device
         if lists is None:
-            self._codes = _upload(packed.data, dev)      # [n_segs, MB, SEG] | [n_segs, SEG, MB]
+            # [n_segs, MB, SEG] | [n_segs, SEG, MB]
+            self._codes = _upload(packed.data, dev) if data is None else data
             valid, start, cnt = packed.seg_valid, packed.seg_start, packed.seg_cnt
         else:
             # the masked lists' part of the mesh's shard: only these
@@ -896,13 +1033,15 @@ class IVFPQIndex:
         self._seg_start = torch.from_numpy(np.asarray(start, np.int64)).to(dev)
         self._seg_cnt = torch.from_numpy(np.asarray(cnt, np.int64)).to(dev)
 
-    def _resolve_auto_storage(self, packed: CSRLists, seg_bytes: int, owned) -> str:
-        """"device" or "hybrid" by this rank's lists against its own card."""
+    def _resolve_auto_storage(self, packed: CSRLists, seg_bytes: int, owned,
+                              held: int = 0) -> str:
+        """"device" or "hybrid" by this rank's lists against its own card,
+        of which ``held`` bytes (the payload already there) count as free."""
         if self.device.type != "cuda":
             return "device"
         payload = int(np.asarray(packed.seg_cnt, np.int64)[owned].sum()) * seg_bytes
         free, _ = torch.cuda.mem_get_info(self.device)
-        storage, budget = auto_storage(payload, free, self.n_lists * self.dim * 4,
+        storage, budget = auto_storage(payload, free + held, self.n_lists * self.dim * 4,
                                        self.AUTO_HEADROOM_BYTES)
         if storage == "hybrid":
             self.hot_budget_bytes = budget

@@ -16,13 +16,16 @@ stored list-contiguous:
 
 A probe expands to exactly ``seg_cnt[probed_lists]`` scan slots, so the
 scan is work-proportional. The index fill packs rows into this layout in
-RAM (``pack_lists``) or straight into the on-disk artifact
+RAM (``pack_lists``), on the device its codes are on
+(``pack_lists_torch``: the IVF-PQ in-memory fill's, on the card or the
+host) or straight into the on-disk artifact
 (``pack_lists_external``: a one-pass sorted scatter, or a two-pass
 distribution sort past ``bucket_bytes``); ``resegment_lists`` rewrites
 an artifact at a smaller segment size. Over a mesh, ``shard_lists``
 splits the lists by ``list id % W`` (``rank_shard``: one rank's part,
-without reading any payload). Host numpy throughout: the files they
-write and the shards equal the JAX package's byte for byte.
+without reading any payload). All but ``pack_lists_torch`` run in host
+numpy; every one of them gives the JAX package's arrays, files and
+shards byte for byte.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 def bucket_size(v: int, lo: int = 8) -> int:
@@ -167,6 +171,57 @@ def pack_lists(
         data=data_out, row_ids=row_ids_out, seg_valid=seg_valid,
         seg_start=seg_start.astype(np.int64), seg_cnt=seg_cnt.astype(np.int32),
         seg_size=seg_size, n_lists=n_lists, n_rows=n, transposed=transposed,
+    )
+
+
+def pack_lists_torch(
+    payloads: torch.Tensor,
+    positions: torch.Tensor,
+    assignments: torch.Tensor,
+    n_lists: int,
+    *,
+    seg_size: int,
+    counts: torch.Tensor | None = None,
+) -> CSRLists:
+    """``pack_lists(..., transposed=True)`` on the device the tensors are
+    on: payloads [N, MB] u8, positions [N] and assignments [N] ints;
+    ``counts``, the rows of each list, where the caller has them. Every
+    array of the returned ``CSRLists`` is a tensor there, equal byte for
+    byte to ``pack_lists``'s array of the same name.
+
+    A stable sort by list gives each row its slot (its list's first slot
+    plus its rank within the list); rows scatter from where they are into
+    a zeroed row-major stage of whole segments, which one copy transposes
+    to the [n_segs, MB, SEG] blocks. Beside the inputs it holds the stage,
+    the blocks and the row ids, and i64 vectors of N (the sort's, the
+    slots).
+    """
+    dev = payloads.device
+    n, mb = payloads.shape
+    assignments = assignments.long()
+    if counts is None:
+        counts = torch.bincount(assignments, minlength=n_lists)
+    seg_cnt = (counts + seg_size - 1) // seg_size
+    seg_start = torch.cumsum(seg_cnt, 0) - seg_cnt
+    n_segs = max(int(seg_cnt.sum()), 1)  # keep >=1 dead segment: scans clamp to 0
+    # row r's slot: its place j in the sorted order, moved from its list's
+    # first row (cumsum - counts) to its list's first slot
+    order = torch.sort(assignments, stable=True).indices
+    dest = torch.empty_like(order)
+    dest[order] = torch.arange(n, device=dev)
+    del order
+    dest += (seg_start * seg_size - torch.cumsum(counts, 0) + counts)[assignments]
+    stage = torch.zeros((n_segs * seg_size, mb), dtype=payloads.dtype, device=dev)
+    stage[dest] = payloads
+    row_ids = torch.full((n_segs * seg_size,), -1, dtype=torch.int32, device=dev)
+    row_ids[dest] = positions.to(torch.int32)
+    seg_valid = torch.bincount(dest // seg_size, minlength=n_segs).to(torch.int32)
+    del dest
+    return CSRLists(
+        data=stage.view(n_segs, seg_size, mb).transpose(1, 2).contiguous(),
+        row_ids=row_ids.view(n_segs, seg_size), seg_valid=seg_valid,
+        seg_start=seg_start, seg_cnt=seg_cnt.to(torch.int32),
+        seg_size=seg_size, n_lists=n_lists, n_rows=n, transposed=True,
     )
 
 

@@ -64,10 +64,10 @@ def jax_meta(jidx):
             "seg_size": jidx.seg_size, "spherical": jidx.spherical}
 
 
-def port_of(jidx):
+def port_of(jidx, **kw):
     """The port's index with the JAX package's trained state, unfilled."""
     return index_from_numpy(jax_meta(jidx), jidx.kmeans.centroids, jidx.pq.centroids,
-                            jidx.rotation, None, device="cpu", chunk=CHUNK)
+                            jidx.rotation, None, device="cpu", chunk=CHUNK, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -175,6 +175,73 @@ def test_host_and_card_rows_take_one_route(jax_built, batch_rows):
                         batch_rows)
     for h, c in zip(host, card):
         assert h.dtype == c.dtype and h.tobytes() == c.tobytes()
+
+
+BIG = 1 << 40
+
+
+@pytest.mark.parametrize("storage,spill,room,on_card", [
+    ("device", False, None, False),
+    ("device", True, BIG, False),
+    ("host", False, BIG, True),
+    ("hybrid", False, BIG, True),
+    ("device", False, BIG, True),
+    ("auto", False, BIG, True),
+    ("device", False, 0, False),
+    ("device", False, "half", False),
+    ("device", False, "payload", False),
+], ids=["cpu", "lists_dir", "host", "hybrid", "device", "auto", "no-room",
+        "room-for-half-the-rows", "no-room-for-the-payload"])
+def test_fill_packs_on_the_card_only_where_its_lists_stay(jax_built, tmp_path, monkeypatch,
+                                                          storage, spill, room, on_card):
+    """The card pack runs only without ``lists_dir`` and where the pack
+    fits the card's room, whatever the storage: the install keeps its
+    payload where the lists stay on the card ("device", or "auto"
+    resolving to it) and serves the others from the host copy. ``room``
+    stands in for the card's free memory less the headroom (None: this
+    CPU's own, none). ``_card_room`` off the card is None, so this CPU
+    then runs the card pack on CPU tensors. Either route gives the host
+    pack's lists byte for byte and the same answers."""
+    x, jidx, _ = jax_built
+    pos = np.random.default_rng(8).permutation(len(x)).astype(np.int64)
+    groups = [(torch.from_numpy(x[lo:lo + 500]) if lo % 1000 else x[lo:lo + 500],
+               pos[lo:lo + 500]) for lo in range(0, len(x), 500)]
+    ref = port_of(jidx)
+    ref.fill_stream(iter(groups))
+    assert ref.fill_stats["pack_on_card"] == 0
+    if room == "half":
+        # the collection outgrows it midway and moves what it holds to the host
+        room = ref._card_pack_bytes(len(x) // 2, -(-len(x) // 2 // SEG))
+    if room == "payload":
+        # room for the fewest segments the rows can take, not for the
+        # segments they do take: the collection keeps them, the pack refuses
+        room = ref._card_pack_bytes(len(x), ref.packed.n_segs) - 1
+        assert ref._card_pack_bytes(len(x), -(-len(x) // SEG)) <= room
+    if room is not None:
+        monkeypatch.setattr(IVFPQIndex, "_card_room", lambda self: room)
+    idx = port_of(jidx, storage=storage)
+    trace.start()
+    try:
+        idx.fill_stream(iter(groups), lists_dir=tmp_path / "lists" if spill else None)
+        spans = trace.collect()
+    finally:
+        trace.stop()
+    assert idx.fill_stats["pack_on_card"] == (len(x) if on_card else 0)
+    if not spill:
+        assert [s["counts"] for s in spans if s["name"] == "fill.pack"] == \
+            [{"rows": len(x), "on_card": int(on_card)}]
+    # where the route starts on the card (and may fall back at the pack),
+    # no window's codes download
+    kept = room is not None and not spill
+    assert any(s["name"] == "fill.download" for s in spans) != kept
+    assert idx.storage == ("device" if storage == "auto" else storage)
+    for f in ("data", "row_ids", "seg_valid", "seg_start", "seg_cnt"):
+        a, b = np.asarray(getattr(idx.packed, f)), np.asarray(getattr(ref.packed, f))
+        assert type(getattr(idx.packed, f)) is not torch.Tensor
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), f
+    q = queries(x, 4)
+    for got, want in zip(idx.search(q, 10, nprobe=4), ref.search(q, 10, nprobe=4)):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_host_rows_are_not_normalised_in_numpy(jax_built, monkeypatch):

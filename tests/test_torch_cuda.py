@@ -531,3 +531,62 @@ def test_host_and_device_groups_fill_alike(cuda):
     for name in ("data", "row_ids", "seg_valid", "seg_start", "seg_cnt"):
         h, c = getattr(host.packed, name), getattr(card.packed, name)
         assert h.dtype == c.dtype and h.tobytes() == c.tobytes(), name
+
+
+def test_card_pack_fill_matches_the_host_pack(cuda, monkeypatch):
+    """An in-memory fill on the card packs its lists there (host and
+    device groups, positions out of order): the lists equal a host-pack
+    fill's of the same groups byte for byte, and so do the answers; the
+    card's memory stays within the bound the route checks."""
+    from abstracts_search_tpu_torch.index import IVFPQIndex
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    n_lists, dim, m, group = 512, 64, 16, 4096
+    norm = torch.nn.functional.normalize
+    rot, _ = torch.linalg.qr(torch.randn((dim, dim), device=cuda, generator=g))
+    params = (norm(torch.randn((n_lists, dim), device=cuda, generator=g), dim=1).cpu().numpy(),
+              0.05 * torch.randn((m, 16, dim // m), device=cuda, generator=g).cpu().numpy(),
+              rot.cpu().numpy())
+    x = torch.randn((6 * group, dim), device=cuda, generator=g)
+    xh = x.cpu().numpy()
+    pos = np.random.default_rng(4).permutation(10 * len(xh))[:len(xh)].astype(np.int64)
+    groups = [(xh[lo:lo + group] if lo % (2 * group) else x[lo:lo + group], pos[lo:lo + group])
+              for lo in range(0, len(xh), group)]
+
+    def fill():
+        idx = IVFPQIndex(n_lists, dim, pq_m=m, pq_nbits=4, seg_size=64, device=cuda)
+        idx.set_params(*params)
+        idx.fill_stream(iter(groups))
+        return idx
+
+    card = fill()
+    with monkeypatch.context() as mp:
+        mp.setattr(IVFPQIndex, "_card_room", lambda self: None)
+        host = fill()
+    assert card.fill_stats["pack_on_card"] == len(xh) and host.fill_stats["pack_on_card"] == 0
+    for name in ("data", "row_ids", "seg_valid", "seg_start", "seg_cnt"):
+        h, c = getattr(host.packed, name), getattr(card.packed, name)
+        assert isinstance(c, np.ndarray) and h.dtype == c.dtype and h.tobytes() == c.tobytes()
+    assert torch.equal(card._codes, host._codes)
+    q = xh[::97] + 0.05
+    for got, want in zip(card.search(q, 10, nprobe=8), host.search(q, 10, nprobe=8)):
+        np.testing.assert_array_equal(got, want)
+    # from its collection to the end of its pack the fill holds no more of
+    # the card than the bound its route checks the card's room against
+    idx = IVFPQIndex(n_lists, dim, pq_m=m, pq_nbits=4, seg_size=64, device=cuda)
+    idx.set_params(*params)
+    chunks = [(*idx.encode(v, _on_card=True), p) for v, p in groups]
+    torch.cuda.synchronize(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    peak = []
+    install = IVFPQIndex._install
+
+    def measured(self, packed, data=None):
+        peak.append(torch.cuda.max_memory_allocated(cuda) - base)
+        return install(self, packed, data)
+
+    monkeypatch.setattr(IVFPQIndex, "_install", measured)
+    idx.fill_encoded_stream(iter(chunks), _room=1 << 40)
+    assert idx.fill_stats["pack_on_card"] == len(xh)
+    assert 0 < peak[0] <= idx._card_pack_bytes(len(xh), idx.packed.n_segs), peak

@@ -1,15 +1,19 @@
 """The port's list packing against the JAX package's, on the CPU.
 
 Given the same inputs, the port's ``pack_lists`` (row-major and
-transposed), ``pack_lists_external`` (the one-pass sorted scatter, and
+transposed), ``pack_lists_torch`` (the fill's card pack, here on CPU
+tensors), ``pack_lists_external`` (the one-pass sorted scatter, and
 the two-pass distribution sort under a small ``bucket_bytes``) and
 ``resegment_lists`` must equal the JAX package's bit for bit: the
 arrays they return and every file they write. ``prefetch_iterator``
 keeps order and forwards the producer's error.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
+import torch
 
 from abstracts_search_tpu.index import lists as jl
 from abstracts_search_tpu.utils import prefetch_iterator as jax_prefetch
@@ -59,6 +63,52 @@ def test_pack_lists_matches_jax(transposed):
     z = np.zeros(0, np.int64)
     assert_same_csr(tl.pack_lists(e, z, z, 4, seg_size=32, transposed=transposed),
                     jl.pack_lists(e, z, z, 4, seg_size=32, transposed=transposed))
+
+
+def _card_case(name):
+    """(codes, positions, assignments, n_lists, seg_size) of a card-pack case."""
+    rng = np.random.default_rng(3)
+    if name.startswith("seg"):
+        return (*skewed(rng, 5000, 37, 16), 37, int(name[3:]))
+    codes = lambda n: rng.integers(0, 256, (n, 8), dtype=np.uint8)  # noqa: E731
+    in_order = lambda n: np.arange(n, dtype=np.int64)  # noqa: E731
+    if name == "empty-lists":       # lists 0, 2 and the last hold nothing
+        return codes(900), in_order(900), rng.choice([1, 3, 4, 5], 900).astype(np.int64), 7, 32
+    if name == "one-list-many-segments":
+        a = rng.integers(0, 6, 700)
+        a[rng.random(700) < 0.6] = 2
+        return codes(700), in_order(700), a.astype(np.int64), 6, 32
+    if name == "all-in-one-list":
+        return codes(300), in_order(300), np.full(300, 4, np.int64), 9, 64
+    if name == "no-rows":
+        return codes(0), in_order(0), in_order(0), 5, 32
+    if name == "one-row":
+        return codes(1), np.array([41], np.int64), np.array([3], np.int64), 5, 32
+    if name == "positions-out-of-order":
+        return codes(800), rng.permutation(10_000)[:800].astype(np.int64), \
+            rng.integers(0, 11, 800).astype(np.int64), 11, 16
+    # ties: every list's rows interleaved in stream order, so an unstable
+    # sort would reorder rows within a list
+    return codes(640), in_order(640), np.tile(np.arange(4, dtype=np.int64), 160), 4, 32
+
+
+@pytest.mark.parametrize("case", ["seg16", "seg64", "seg256", "empty-lists",
+                                  "one-list-many-segments", "all-in-one-list", "no-rows",
+                                  "one-row", "positions-out-of-order", "ties-keep-stream-order"])
+def test_card_pack_matches_host_and_jax(case):
+    """The card pack, run on CPU tensors, gives every array of the host
+    pack's and the JAX package's transposed lists byte for byte."""
+    codes, pos, assign, n_lists, seg = _card_case(case)
+    got = tl.pack_lists_torch(torch.from_numpy(codes), torch.from_numpy(pos),
+                              torch.from_numpy(assign), n_lists, seg_size=seg)
+    assert all(isinstance(getattr(got, f), torch.Tensor) for f in FIELDS)
+    got = dataclasses.replace(got, **{f: getattr(got, f).numpy() for f in FIELDS})
+    for want in (tl.pack_lists(codes, pos, assign, n_lists, seg_size=seg, transposed=True),
+                 jl.pack_lists(codes, pos, assign, n_lists, seg_size=seg, transposed=True)):
+        assert_same_csr(got, want)
+        for f in FIELDS:
+            assert np.asarray(getattr(got, f)).tobytes() == \
+                np.asarray(getattr(want, f)).tobytes(), f
 
 
 @pytest.mark.parametrize("bucket_bytes", [1 << 30, 24_576], ids=["sorted-scatter",

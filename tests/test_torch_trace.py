@@ -30,7 +30,7 @@ from abstracts_search_tpu_torch.utils.trace import StageTimer, profile_scope
 
 N_LISTS, DIM, M, SEG = 8, 32, 8, 32
 FILL_KEYS = {"rows", "seconds", "rows_per_s", "spill_s", "pack_s", "install_s", "encode_s",
-             "download_s", "normalize_s", "upload_s"}
+             "download_s", "normalize_s", "upload_s", "pack_on_card"}
 
 
 @pytest.fixture(autouse=True)
@@ -334,6 +334,9 @@ def test_fill_stages_are_spans_and_fill_stats_keep_their_keys(trained):
     (job,) = names["fill.job"]
     assert set(children(spans, job)) == {"fill.encode", "fill.collect", "fill.pack",
                                          "fill.install"}
+    # off the card the host packs, and the span says so
+    assert [s["counts"] for s in names["fill.pack"]] == [{"rows": len(x), "on_card": 0}]
+    assert st["pack_on_card"] == 0
     # a host chunk's encode holds, window by window, its upload, the
     # card's normalisation of it and the download of its codes
     for enc in names["fill.encode"]:
