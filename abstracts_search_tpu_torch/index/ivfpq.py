@@ -60,12 +60,14 @@ The build (``train`` -> ``save`` -> ``load`` -> ``fill_stream`` ->
   iteration ("streamed"), or a chunked device source rotated chunk by
   chunk ("device_streamed", the production build);
 - fill: per chunk, one fused encode on the card (rotate, kernel-1
-  assignment on bf16 operands, residual, PQ argmin, nibble pack), the
-  next chunk dispatched before this one's codes download; codes,
-  assignments and positions collect in RAM or spill to disk, then pack
-  into transposed CSR lists (``lists.py``) written straight to the
-  artifact. An in-memory fill on the card whose pack fits its free
-  memory keeps the codes there instead and packs them there; the host
+  assignment on bf16 operands, residual, PQ argmin, nibble pack), host
+  rows first uploaded window by window; the codes, assignments and
+  positions then take one tail, picked once per fill: spilled to disk
+  and packed into transposed CSR lists (``lists.py``) written straight
+  to the artifact (``lists_dir``), or collected in memory and packed
+  there. Codes bound for the host download one chunk behind the encode,
+  through pinned memory. An in-memory fill on the card whose pack fits
+  its free memory keeps the codes there and packs them there; the host
   keeps one download of the lists, and the install keeps the packed
   payload where the lists stay on the card.
 
@@ -90,6 +92,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import logging
 import mmap
@@ -113,7 +116,10 @@ from ..utils.trace import StageTimer
 from .kmeans import KMeans, _normalize_rows, _normalize_rows_t, _round_up
 from .lists import (CSRLists, load_lists, pack_lists_external, ragged_ranges, rank_shard,
                     save_lists)
-# the in-memory fill's one pack, on the host or on the card
+# the in-memory fill's one pack, where its codes are (on the host or on
+# the card): ``lists.pack_lists_torch``, not ``lists.pack_lists``. The
+# benchmark's planted pack fault (portbench/tests/test_portbench_cells.py)
+# patches it under this name.
 from .lists import pack_lists_torch as pack_lists
 from .opq import OPQ, _rotate
 from .pq import ProductQuantizer
@@ -147,6 +153,38 @@ def _to_host(v) -> np.ndarray:
     out = torch.frombuffer(buf, dtype=v.dtype).view(v.shape)
     out.copy_(v)
     return out.numpy()
+
+
+def _on_host(chunks, timing: dict):
+    """``(assignments, codes, positions)`` chunks -> the same chunks as
+    host arrays, one chunk behind: a card chunk's copy into pinned memory
+    is enqueued as it arrives, and the chunk before it is handed on once
+    its own copy has landed, so the card encodes the next chunk while the
+    host takes this one. A CPU tensor becomes its numpy view and a host
+    array passes as it is. Each chunk's wait is one ``fill.download``
+    span, whose host seconds add to ``timing["download_s"]``."""
+
+    def landed(chunk, done):
+        with _timed(timing, "download_s", "fill.download"):
+            if done is not None:
+                done.synchronize()
+        assign, codes, positions = chunk
+        return _to_host(assign), _to_host(codes), np.asarray(positions)
+
+    pending = None
+    for assign, codes, positions in chunks:
+        done = None
+        if isinstance(codes, torch.Tensor) and codes.is_cuda:
+            stream = torch.cuda.current_stream(codes.device)
+            assign, codes = [torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                             .copy_(v, non_blocking=True) for v in (assign, codes)]
+            done = torch.cuda.Event()
+            done.record(stream)
+        if pending is not None:
+            yield landed(*pending)
+        pending = (assign, codes, positions), done
+    if pending is not None:
+        yield landed(*pending)
 
 
 def _append(buf: torch.Tensor | None, n: int, v: torch.Tensor) -> torch.Tensor:
@@ -609,176 +647,109 @@ class IVFPQIndex:
             codes[lo:lo + len(a)] = c
         return assign, codes
 
-    def _encode_dispatch(self, xj: torch.Tensor, timing: dict | None = None):
-        """Fused encode of rows on the card: a device chunk, or a host
-        window just uploaded. Normalizes them there when spherical; with
-        ``timing`` (a host window's) under a ``fill.normalize`` span whose
-        host seconds, the enqueue, add to ``normalize_s``. Returns tensors
-        on the card, so a caller can dispatch the next chunk before this
-        one's codes download."""
-        x = xj.to(self.device, torch.float32)
-        if self.spherical:
-            with (contextlib.nullcontext() if timing is None else
-                  _timed(timing, "normalize_s", "fill.normalize", rows=len(x))):
-                x = _normalize_rows_t(x)
-        return self._encode_fused(x)
-
-    def encode(self, vectors, *, batch_rows: int = 1 << 18,
-               timing: dict | None = None, _on_card: bool = False):
+    def encode(self, vectors, *, batch_rows: int = 1 << 18, timing: dict | None = None):
         """-> (list assignment [N] i64, residual PQ codes [N, code_bytes]
-        u8 in the storage format: 4-bit codes arrive nibble-packed), as
-        numpy arrays.
+        u8 in the storage format: 4-bit codes arrive nibble-packed). The
+        fill's one encode step, for every chunk: the benchmark's planted
+        code and assignment faults patch this method to reach the fill's
+        lists, so the fill calls nothing below it. A tensor goes to the
+        device whole. Host rows go up as they are, ``batch_rows`` at a
+        time, each window under a ``fill.upload`` span and its
+        normalisation under a ``fill.normalize`` span. Either is normalised
+        on the device when spherical and takes the fused encode there.
 
-        ``vectors`` may be a tensor on the card: then the rows never cross
-        to the host, and only the codes download. Host rows go up as they
-        are, ``batch_rows`` at a time, and take the same normalisation and
-        encode on the card; each window passes through ``fill.upload``,
-        ``fill.normalize`` and ``fill.download`` spans, and ``timing`` (the
-        fill's stage seconds) gains the host seconds of the first two as
-        ``upload_s`` and ``normalize_s``. ``_on_card`` (the fill's card
-        pack): both outputs stay tensors on the card, and nothing
-        downloads."""
+        ``timing``: a fill's stage seconds (``fill_stream``'s call). The
+        windows' spans add their host seconds (the normalisation's: the
+        enqueue) to its ``upload_s`` and ``normalize_s``, and the outputs
+        stay tensors on this index's device for the fill's tail, which
+        downloads them once where the host takes them (``_on_host``).
+        Without it the outputs download once and return as numpy
+        arrays."""
         if not self.is_trained:
             raise RuntimeError("train() before encode()")
         if isinstance(vectors, torch.Tensor):
-            a, cd = self._encode_dispatch(vectors)
-            return (a, cd) if _on_card else (a.cpu().numpy(), cd.cpu().numpy())
-        timing = {} if timing is None else timing
-        x = np.asarray(vectors, np.float32)
-        n = len(x)
-        if _on_card:
-            assign = torch.empty(n, dtype=torch.int64, device=self.device)
-            codes = torch.empty((n, self.code_bytes), dtype=torch.uint8, device=self.device)
+            x = vectors.to(self.device, torch.float32)
+            assign, codes = self._encode_fused(_normalize_rows_t(x) if self.spherical else x)
         else:
-            assign = np.empty(n, np.int64)
-            codes = np.empty((n, self.code_bytes), np.uint8)
-        for lo in range(0, n, batch_rows):
-            xh = np.ascontiguousarray(x[lo:lo + batch_rows])
-            with _timed(timing, "upload_s", "fill.upload", bytes=xh.nbytes):
-                xc = torch.from_numpy(xh).to(self.device)
-            a, cd = self._encode_dispatch(xc, timing)
-            hi = lo + len(xc)
-            if _on_card:
-                assign[lo:hi], codes[lo:hi] = a, cd
-                continue
-            with trace.span("fill.download"):
-                assign[lo:hi] = a.cpu().numpy()
-                codes[lo:hi] = cd.cpu().numpy()
-        return assign, codes
+            x = np.asarray(vectors, np.float32)
+            assign = torch.empty(len(x), dtype=torch.int64, device=self.device)
+            codes = torch.empty((len(x), self.code_bytes), dtype=torch.uint8, device=self.device)
+            spans = {} if timing is None else timing
+            for lo in range(0, len(x), batch_rows):
+                xh = np.ascontiguousarray(x[lo:lo + batch_rows])
+                with _timed(spans, "upload_s", "fill.upload", bytes=xh.nbytes):
+                    xc = torch.from_numpy(xh).to(self.device)
+                if self.spherical:
+                    with _timed(spans, "normalize_s", "fill.normalize", rows=len(xc)):
+                        xc = _normalize_rows_t(xc)
+                assign[lo:lo + len(xc)], codes[lo:lo + len(xc)] = self._encode_fused(xc)
+        if timing is not None:
+            return assign, codes
+        return assign.cpu().numpy(), codes.cpu().numpy()
 
     def fill(self, vectors: np.ndarray, positions: np.ndarray | None = None) -> None:
         if positions is None:
             positions = np.arange(len(vectors), dtype=np.int64)
         self.fill_stream([(vectors, positions)])
 
-    def fill_stream(self, chunks, *, lists_dir: str | Path | None = None,
-                    prefetch: int = 2) -> None:
-        """Stream (vectors, positions) chunks: encode each chunk on the
-        card; only the codes survive on the host. Chunks may be numpy
-        arrays or tensors on the card (then the next chunk's encode is
-        dispatched before this one's codes download, and the host spills
-        while the card encodes).
-
-        With ``lists_dir`` set (the production path), per-chunk codes,
-        assignments and positions spill to disk as they stream and the
-        final pack writes the memmap artifact there directly: host RSS
-        stays O(corpus/80). Without it, everything stays in RAM, or, on
-        the card where the pack fits its free memory less
-        ``AUTO_HEADROOM_BYTES``, on the card: the codes never download,
-        the pack runs there, and the install keeps its payload where the
-        lists stay on the card (the card pack; ``fill_encoded_stream``).
-        ``prefetch`` chunks are pulled ahead on a reader thread.
+    def fill_stream(self, chunks, *, lists_dir: str | Path | None = None) -> None:
+        """Stream (vectors, positions) chunks, the rows numpy arrays or
+        tensors: each chunk is encoded onto this index's device
+        (``encode``), and the encoded chunks take the tail that
+        ``fill_encoded_stream`` picks: spilled to ``lists_dir`` (the
+        production path: host RSS stays O(corpus/80)), or packed in
+        memory, on the card where the pack fits. Two chunks are pulled
+        ahead on a reader thread.
 
         Over a mesh of several ranks each rank passes only its own chunks,
         chunk ``i`` of the stream to rank ``i % W`` (dealt before they are
         read: ``deal``), and the same ``lists_dir`` (required; module
         docstring).
 
-        ``fill_stats`` then holds rows, rows_per_s and seconds of each
-        stage, each the seconds of its ``fill.<stage>`` spans (the
-        ``fill.job`` span's children): encode (a device chunk's fused
-        encode, the card's time by the span's CUDA events, host time off
-        the card; a host chunk's whole encode, on the host's clock),
-        download (waiting for a device chunk's codes to land), spill
-        (``fill.collect``: the chunks' codes kept in RAM, or spilled to
-        disk), pack, install, and on host chunks upload (host-to-card
-        copies) and normalize (rows to unit norm, on the card: the
-        enqueue); ``pack_on_card`` counts the rows the card packed."""
+        ``fill_stats`` then holds rows, rows_per_s and the host seconds of
+        each stage's ``fill.<stage>`` spans (the ``fill.job`` span's
+        children): encode (each chunk's encode; on the card, its enqueue
+        and its host rows' uploads), download (each chunk's wait for its
+        codes on the host, ``_on_host``: none where the card packs), spill
+        (``fill.collect``: the chunks' codes kept in memory, or spilled to
+        disk, and where the card pack gives way midway, the move of what
+        the card had collected to the host), pack, install, and, for host rows, upload (the host-to-card
+        copies) and normalize (rows to unit norm on the card: the
+        enqueue), both inside encode; ``pack_on_card`` counts the rows the
+        card packed."""
         from ..utils import prefetch_iterator
 
         self._refuse_mutation("fill")
         assert_exact_f32()
         with trace.span("fill.job"):
-            stream = prefetch_iterator(iter(chunks), depth=prefetch)
-            on_card = self.device.type == "cuda"
-            room = None if lists_dir is not None else self._card_room()
-            timing = dict.fromkeys(("normalize_s", "upload_s", "encode_s", "download_s"), 0.0)
-            encodes = []    # device chunks' encode spans, resolved once the fill has ended
-
-            def dispatch(vectors):
-                """Enqueue the encode and, for the host pack on the card, the
-                copy of its outputs to pinned host memory; -> (assignments,
-                codes, copy event or None)."""
-                with trace.measure("fill.encode", device=self.device) as enc:
-                    a, cd = self._encode_dispatch(vectors)
-                encodes.append(enc)
-                if not on_card or room is not None:
-                    return a, cd, None
-                ah = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                ch = torch.empty(cd.shape, dtype=cd.dtype, pin_memory=True)
-                ah.copy_(a, non_blocking=True)
-                ch.copy_(cd, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-                return ah, ch, done
-
-            def drain(p):
-                (a, cd, done), pos = p
-                if room is not None:
-                    return a, cd, pos
-                if done is not None:
-                    with _timed(timing, "download_s", "fill.download"):
-                        done.synchronize()
-                return a.numpy(), cd.numpy(), pos
+            stream = prefetch_iterator(iter(chunks), depth=2)
+            timing = dict.fromkeys(("normalize_s", "upload_s", "encode_s"), 0.0)
 
             def encoded():
-                pending = None
                 for vectors, positions in stream:
-                    if isinstance(vectors, torch.Tensor):
-                        cur = (dispatch(vectors), np.asarray(positions))
-                    else:
-                        if pending is not None:  # preserve position order
-                            yield drain(pending)
-                            pending = None
-                        with _timed(timing, "encode_s", "fill.encode"):
-                            assign, codes = self.encode(vectors, timing=timing,
-                                                        _on_card=room is not None)
-                        yield assign, codes, np.asarray(positions)
-                        continue
-                    if pending is not None:
-                        yield drain(pending)
-                    pending = cur
-                if pending is not None:
-                    yield drain(pending)
+                    with _timed(timing, "encode_s", "fill.encode"):
+                        assign, codes = self.encode(vectors, timing=timing)
+                    yield assign, codes, np.asarray(positions)
 
-            self.fill_encoded_stream(encoded(), lists_dir=lists_dir, _room=room)
-            timing["encode_s"] += sum(enc.device_seconds() for enc in encodes)
+            self.fill_encoded_stream(encoded(), lists_dir=lists_dir)
             self.fill_stats.update(timing)
 
-    def fill_encoded_stream(self, chunks, *, lists_dir: str | Path | None = None,
-                            _room: int | None = None) -> None:
-        """Fill from pre-encoded ``(assignments, codes, positions)``
-        chunks: the spill + pack + install tail shared with
-        ``fill_stream``. A filled index is not filled again: refills go
-        through the empty (trained) artifact. Over a mesh each rank passes
-        its own chunks, ``i % W == rank`` of the stream, in order, and the
-        same ``lists_dir`` (required at W > 1).
+    def fill_encoded_stream(self, chunks, *, lists_dir: str | Path | None = None) -> None:
+        """Fill from encoded ``(assignments, codes, positions)`` chunks,
+        host arrays or tensors (``fill_stream``'s own, on this index's
+        device). A filled index is not filled again: refills go through
+        the empty (trained) artifact. Over a mesh each rank passes its own
+        chunks, ``i % W == rank`` of the stream, in order, and the same
+        ``lists_dir`` (required at W > 1).
 
-        ``_room`` (``fill_stream``'s card pack): the card's free bytes less
-        the headroom, with each chunk's codes and assignments tensors on
-        the card. They collect and pack there while the pack's bytes
-        (``_card_pack_bytes``) fit ``_room``; else they download, and the
-        same pack (``lists.pack_lists_torch``) runs on the host."""
+        The tail is picked here. With ``lists_dir`` the chunks spill to
+        disk (``_fill_spilled``). Without it they collect in memory and
+        one ``lists.pack_lists_torch`` packs them where they are: chunks
+        that arrive as tensors on this index's device collect there while
+        the pack's bytes (``_card_pack_bytes``) fit the card's room
+        (``_card_room``). At the first chunk that does not fit, or that
+        arrives on the host, the collection moves to the host. Every
+        chunk that the host takes comes through ``_on_host``."""
         self._refuse_mutation("fill")
         if not self.is_trained:
             raise RuntimeError("train() before fill()")
@@ -790,44 +761,48 @@ class IVFPQIndex:
             raise ValueError(
                 f"a fill over a mesh of {self.mesh.size} ranks needs lists_dir: each "
                 "rank spills beside it and rank 0 packs the lists there")
+        timing = dict.fromkeys(("download_s", "spill_s", "pack_s"), 0.0)
         if lists_dir is not None:
-            return self._fill_spilled(iter(chunks), Path(lists_dir))
+            return self._fill_spilled(_on_host(chunks, timing), Path(lists_dir), timing)
         t_start = time.perf_counter()
-        timing = {"spill_s": 0.0}
-        room = _room
+        room = self._card_room()
+        chunks = iter(chunks)
         parts = ([], [], [])    # codes, assignments and positions on the host
-        card = (None, None)     # while room is set: codes and assignments on the card, rows :n
-        n = 0
-
-        def to_host():
-            nonlocal room, card
-            room = None
-            for p, buf in zip(parts, card):
-                if buf is not None:
-                    p.append(_to_host(buf[:n]))
-            card = (None, None)
-
+        card = [None, None]     # codes and assignments on the card, rows :n
+        n, rest = 0, None
         for assign, codes, positions in chunks:
+            m = n + len(codes)
+            # on the host, or past the room at the fewest segments these
+            # rows can take: the rest of the stream packs on the host
+            if (room is None or not isinstance(codes, torch.Tensor)
+                    or codes.device.type != self.device.type
+                    or self._card_pack_bytes(m, -(-m // self.seg_size)) > room):
+                rest = itertools.chain([(assign, codes, positions)], chunks)
+                break
             with _timed(timing, "spill_s", "fill.collect"):
                 parts[2].append(np.asarray(positions))
-                m = n + len(codes)
-                # past the room at the fewest segments these rows can take,
-                # the whole stream packs on the host
-                if room is not None and self._card_pack_bytes(m, -(-m // self.seg_size)) > room:
-                    to_host()
-                if room is None:
-                    parts[0].append(_to_host(codes))
-                    parts[1].append(_to_host(assign))
-                else:
-                    card = tuple(_append(buf, n, v) for buf, v in zip(card, (codes, assign)))
-                n = m
-        if room is not None:
+                card = [_append(buf, n, v) for buf, v in zip(card, (codes, assign))]
+            n = m
+        on_card = rest is None and n > 0
+        if on_card:
             with _timed(timing, "spill_s", "fill.collect"):
                 counts = torch.bincount(card[1][:n], minlength=self.n_lists)
                 n_segs = int(((counts + self.seg_size - 1) // self.seg_size).sum())
-                if self._card_pack_bytes(n, max(n_segs, 1)) > room:
-                    to_host()
-        on_card = room is not None
+            on_card = self._card_pack_bytes(n, max(n_segs, 1)) <= room
+        if not on_card:
+            counts = None
+            if n:
+                with _timed(timing, "spill_s", "fill.collect"):
+                    for p, buf in zip(parts, card):
+                        p.append(_to_host(buf[:n]))
+            card = None
+            for assign, codes, positions in _on_host(rest or (), timing):
+                with _timed(timing, "spill_s", "fill.collect"):
+                    # copies in pageable memory: a card chunk lands in pinned
+                    # memory, which so goes back at once, not at the pack
+                    for p, v in zip(parts, (codes, assign, positions)):
+                        p.append(np.array(v))
+                n += len(codes)
         payload = []    # the packed payload on the card, for the install alone
         with _timed(timing, "pack_s", "fill.pack", rows=n, on_card=int(on_card)):
             if on_card:
@@ -840,7 +815,7 @@ class IVFPQIndex:
                     torch.from_numpy(np.concatenate(p).astype(t, copy=False))
                     for p, t in zip(parts, (np.uint8, np.int64, np.int64)))
             lists = pack_lists(codes, positions, assign, self.n_lists,
-                               seg_size=self.seg_size, counts=counts if on_card else None)
+                               seg_size=self.seg_size, counts=counts)
             del codes, assign, positions
             packed = dataclasses.replace(lists, **{
                 f: _to_host(getattr(lists, f))
@@ -878,18 +853,19 @@ class IVFPQIndex:
         mb = self.code_bytes
         return n * (2 * (mb + 8) + 8 + 6 * 8) + n_segs * self.seg_size * (2 * mb + 4)
 
-    def _fill_spilled(self, stream, lists_dir: Path) -> None:
+    def _fill_spilled(self, stream, lists_dir: Path, timing: dict) -> None:
         """The fill's tail with ``lists_dir`` (the production path, in one
-        process or over a mesh): each rank spills its chunks' codes,
-        assignments and positions to ``<parent>/.astpu_spill/p<rank>/``;
-        rank 0 packs them into ``lists_dir`` with the external pack (a
-        single writer), straight from its own spill at W = 1, else from
-        every rank's spill merged back into stream order (chunk ``i`` from
-        rank ``i % W``), so the lists equal one process's byte for byte;
-        then every rank installs its own lists. Over a group each rank
-        also leaves an ``.owner_p<rank>.json`` breadcrumb in ``lists_dir``
-        and the ranks meet at a barrier before and after the pack (the
-        JAX package's ``_fill_encoded_multihost``)."""
+        process or over a mesh), over host chunks (``_on_host``), adding
+        to the stage seconds ``timing``: each rank spills its chunks'
+        codes, assignments and positions to ``<parent>/.astpu_spill/
+        p<rank>/``; rank 0 packs them into ``lists_dir`` with the external
+        pack (a single writer), straight from its own spill at W = 1, else
+        from every rank's spill merged back into stream order (chunk ``i``
+        from rank ``i % W``), so the lists equal one process's byte for
+        byte; then every rank installs its own lists. Over a group each
+        rank also leaves an ``.owner_p<rank>.json`` breadcrumb in
+        ``lists_dir`` and the ranks meet at a barrier before and after the
+        pack (the JAX package's ``_fill_encoded_multihost``)."""
         t_start = time.perf_counter()
         w, rank = self.mesh.size, self.mesh.rank
         spill_root = lists_dir.parent / ".astpu_spill"
@@ -898,7 +874,7 @@ class IVFPQIndex:
             shutil.rmtree(mine)
         mine.mkdir(parents=True)
         lists_dir.mkdir(parents=True, exist_ok=True)
-        rows, timing = [], {"spill_s": 0.0, "pack_s": 0.0}
+        rows = []
         with open(mine / "codes.u8", "wb") as cf, open(mine / "assign.i32", "wb") as af, \
              open(mine / "pos.i64", "wb") as pf:
             for assign, codes, positions in stream:

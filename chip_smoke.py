@@ -1067,7 +1067,7 @@ def build_checks(filled: Path, reader, fill_idx, seed: int) -> dict:
     out = {}
     for impl in ("cuda", "torch"):
         fill_idx.impl = impl
-        out[impl] = fill_idx._encode_dispatch(chunk)
+        out[impl] = fill_idx.encode(chunk, timing={})
     fill_idx.impl = "auto"
     (ka, kc), (pa, pc) = out["cuda"], out["torch"]
     xr = torch.nn.functional.normalize(chunk, dim=1) @ fill_idx._rot

@@ -230,10 +230,16 @@ def test_fill_packs_on_the_card_only_where_its_lists_stay(jax_built, tmp_path, m
     if not spill:
         assert [s["counts"] for s in spans if s["name"] == "fill.pack"] == \
             [{"rows": len(x), "on_card": int(on_card)}]
-    # where the route starts on the card (and may fall back at the pack),
-    # no window's codes download
-    kept = room is not None and not spill
-    assert any(s["name"] == "fill.download" for s in spans) != kept
+    # each chunk that the host takes downloads once, under one
+    # fill.download: every chunk where the fill spills or the card has no
+    # room, else those from the first that outgrows the room on (none
+    # where only the pack's own check refuses the card)
+    if spill or room is None:
+        held = len(groups)
+    else:
+        rows = np.cumsum([len(p) for _, p in groups])
+        held = sum(ref._card_pack_bytes(int(m), -(-int(m) // SEG)) > room for m in rows)
+    assert [s["name"] for s in spans].count("fill.download") == held
     assert idx.storage == ("device" if storage == "auto" else storage)
     for f in ("data", "row_ids", "seg_valid", "seg_start", "seg_cnt"):
         a, b = np.asarray(getattr(idx.packed, f)), np.asarray(getattr(ref.packed, f))

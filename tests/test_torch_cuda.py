@@ -489,7 +489,7 @@ def test_fused_encode_kernel_route_matches_plain(cuda):
     out = {}
     for impl in ("cuda", "torch"):
         idx.impl = impl
-        out[impl] = idx._encode_dispatch(x)
+        out[impl] = idx.encode(x, timing={})
     (ka, kc), (pa, pc) = out["cuda"], out["torch"]
     differ = ka != pa
     xr = (norm(x, dim=1) @ idx._rot).to(torch.bfloat16).double()
@@ -575,7 +575,7 @@ def test_card_pack_fill_matches_the_host_pack(cuda, monkeypatch):
     # the card than the bound its route checks the card's room against
     idx = IVFPQIndex(n_lists, dim, pq_m=m, pq_nbits=4, seg_size=64, device=cuda)
     idx.set_params(*params)
-    chunks = [(*idx.encode(v, _on_card=True), p) for v, p in groups]
+    chunks = [(*(torch.from_numpy(a).to(cuda) for a in idx.encode(v)), p) for v, p in groups]
     torch.cuda.synchronize(cuda)
     base = torch.cuda.memory_allocated(cuda)
     torch.cuda.reset_peak_memory_stats(cuda)
@@ -587,6 +587,7 @@ def test_card_pack_fill_matches_the_host_pack(cuda, monkeypatch):
         return install(self, packed, data)
 
     monkeypatch.setattr(IVFPQIndex, "_install", measured)
-    idx.fill_encoded_stream(iter(chunks), _room=1 << 40)
+    monkeypatch.setattr(IVFPQIndex, "_card_room", lambda self: 1 << 40)
+    idx.fill_encoded_stream(iter(chunks))
     assert idx.fill_stats["pack_on_card"] == len(xh)
     assert 0 < peak[0] <= idx._card_pack_bytes(len(xh), idx.packed.n_segs), peak

@@ -31,6 +31,8 @@ from abstracts_search_tpu_torch.utils.trace import StageTimer, profile_scope
 N_LISTS, DIM, M, SEG = 8, 32, 8, 32
 FILL_KEYS = {"rows", "seconds", "rows_per_s", "spill_s", "pack_s", "install_s", "encode_s",
              "download_s", "normalize_s", "upload_s", "pack_on_card"}
+# what a fill through ``lists_dir`` adds: the mesh's barrier and this rank's share
+SPILL_KEYS = {"barrier_s", "rank", "mesh_size", "rank_rows", "rank_chunks"}
 
 
 @pytest.fixture(autouse=True)
@@ -319,40 +321,60 @@ def test_flat_search_tree():
     assert children(spans, s) == ["flat.upload", "flat.merge", "flat.winners"]
 
 
-def test_fill_stages_are_spans_and_fill_stats_keep_their_keys(trained):
+@pytest.mark.parametrize("spill", [False, True], ids=["in-memory", "spilled"])
+def test_fill_stages_are_spans_and_fill_stats_keep_their_keys(trained, tmp_path, spill):
+    """In memory from host chunks (off the card the host packs), and
+    spilled to ``lists_dir`` from host-array and tensor chunks in turn,
+    whose lists equal the in-memory fill's of the same chunks."""
     x, params = trained
-    idx = IVFPQIndex(N_LISTS, DIM, pq_m=M, pq_nbits=4, seg_size=SEG, chunk=128, device="cpu")
-    idx.set_params(*params)
-    groups = [(x[lo:lo + 400], np.arange(lo, lo + 400, dtype=np.int64))
-              for lo in range(0, len(x), 400)]
+
+    def index():
+        idx = IVFPQIndex(N_LISTS, DIM, pq_m=M, pq_nbits=4, seg_size=SEG, chunk=128,
+                         device="cpu")
+        idx.set_params(*params)
+        return idx
+
+    groups = [(torch.from_numpy(x[lo:lo + 400]) if spill and lo % 800 else x[lo:lo + 400],
+               np.arange(lo, lo + 400, dtype=np.int64)) for lo in range(0, len(x), 400)]
+    hosts = [isinstance(v, np.ndarray) for v, _ in groups]
+    assert hosts == [True, not spill, True]
+    idx = index()
     trace.start()
-    idx.fill_stream(iter(groups))
+    idx.fill_stream(iter(groups), lists_dir=tmp_path / "lists" if spill else None)
     spans = trace.collect()
     st = idx.fill_stats
-    assert set(st) == FILL_KEYS and st["rows"] == len(x)
+    assert set(st) == FILL_KEYS | (SPILL_KEYS if spill else set()) and st["rows"] == len(x)
     names = by_name(spans)
     (job,) = names["fill.job"]
-    assert set(children(spans, job)) == {"fill.encode", "fill.collect", "fill.pack",
-                                         "fill.install"}
-    # off the card the host packs, and the span says so
-    assert [s["counts"] for s in names["fill.pack"]] == [{"rows": len(x), "on_card": 0}]
+    assert set(children(spans, job)) == {"fill.encode", "fill.download", "fill.collect",
+                                         "fill.pack", "fill.install"}
+    # the fill holds the codes on the host: each chunk's come there once,
+    # under one fill.download
+    assert [s["parent"] for s in names["fill.download"]] == [job["id"]] * len(groups)
     assert st["pack_on_card"] == 0
-    # a host chunk's encode holds, window by window, its upload, the
-    # card's normalisation of it and the download of its codes
-    for enc in names["fill.encode"]:
-        assert children(spans, enc) == ["fill.upload", "fill.normalize", "fill.download"]
-    assert len(names["fill.normalize"]) == len(names["fill.upload"]) == len(groups)
-    assert [u["counts"] for u in names["fill.upload"]] == [{"bytes": 400 * DIM * 4}] * len(groups)
-    # each stage's seconds are the host seconds of its spans; a host
-    # chunk's encode_s is its whole encode, and only a device chunk's
-    # codes count as download_s
+    if spill:
+        ref = index()
+        ref.fill_stream(iter(groups))
+        for f in ("data", "row_ids", "seg_valid", "seg_start", "seg_cnt"):
+            a, b = np.asarray(getattr(idx.packed, f)), np.asarray(getattr(ref.packed, f))
+            assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), f
+    else:
+        # off the card the host packs, and the span says so
+        assert [s["counts"] for s in names["fill.pack"]] == [{"rows": len(x), "on_card": 0}]
+    # a host chunk's encode holds, window by window, its upload and the
+    # card's normalisation of it; a tensor goes up whole
+    assert [children(spans, enc) for enc in names["fill.encode"]] == \
+        [["fill.upload", "fill.normalize"] if h else [] for h in hosts]
+    assert len(names["fill.normalize"]) == len(names["fill.upload"]) == sum(hosts)
+    assert [u["counts"] for u in names["fill.upload"]] == [{"bytes": 400 * DIM * 4}] * sum(hosts)
+    # each stage's seconds are the host seconds of its spans
     for key, name in (("normalize_s", "fill.normalize"), ("upload_s", "fill.upload"),
                       ("spill_s", "fill.collect"), ("pack_s", "fill.pack"),
-                      ("install_s", "fill.install"), ("encode_s", "fill.encode")):
+                      ("install_s", "fill.install"), ("encode_s", "fill.encode"),
+                      ("download_s", "fill.download")):
         assert st[key] == pytest.approx(sum(s["host_s"] for s in names[name])), key
-    assert st["download_s"] == 0.0
     assert st["normalize_s"] + st["upload_s"] <= st["encode_s"]
-    assert st["encode_s"] + st["spill_s"] + st["pack_s"] <= job["host_s"]
+    assert st["encode_s"] + st["download_s"] + st["spill_s"] + st["pack_s"] <= job["host_s"]
 
 
 def test_fill_stats_without_the_tracer(trained):
@@ -362,6 +384,39 @@ def test_fill_stats_without_the_tracer(trained):
     idx.fill_stream(iter([(torch.from_numpy(x), np.arange(len(x)))]))
     assert set(idx.fill_stats) == FILL_KEYS and idx.fill_stats["encode_s"] > 0
     assert trace.collect() == []
+
+
+@pytest.mark.parametrize("spill", [False, True], ids=["in-memory", "spilled"])
+def test_every_fill_chunk_takes_its_codes_from_encode(trained, tmp_path, monkeypatch, spill):
+    """What ``encode`` returns for a chunk is what the fill packs, for host
+    and tensor chunks on either tail: a fault planted in ``encode``
+    reaches the lists."""
+    x, params = trained
+    groups = [(torch.from_numpy(x[lo:lo + 400]) if lo % 800 else x[lo:lo + 400],
+               np.arange(lo, lo + 400, dtype=np.int64)) for lo in range(0, len(x), 400)]
+
+    def filled(name):
+        idx = IVFPQIndex(N_LISTS, DIM, pq_m=M, pq_nbits=4, seg_size=SEG, chunk=128,
+                         device="cpu")
+        idx.set_params(*params)
+        idx.fill_stream(iter(groups), lists_dir=tmp_path / name if spill else None)
+        return idx.packed
+
+    ref = filled("ref")
+    encode, calls = IVFPQIndex.encode, []
+
+    def flipped(self, v, **kw):
+        a, c = encode(self, v, **kw)
+        calls.append(len(c))
+        return a, c ^ 1
+
+    monkeypatch.setattr(IVFPQIndex, "encode", flipped)
+    got = filled("got")
+    assert calls == [len(p) for _, p in groups]
+    np.testing.assert_array_equal(np.asarray(got.row_ids), np.asarray(ref.row_ids))
+    # every stored code byte, and no padding byte, has its low bit flipped
+    diff = np.asarray(got.data) ^ np.asarray(ref.data)
+    assert set(np.unique(diff)) == {0, 1} and int(diff.sum()) == len(x) * M // 2
 
 
 def test_the_plain_route_takes_no_wrapper_span():
