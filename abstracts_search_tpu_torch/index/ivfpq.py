@@ -61,11 +61,12 @@ The build (``train`` -> ``save`` -> ``load`` -> ``fill_stream`` ->
   chunk ("device_streamed", the production build);
 - fill: per chunk, one fused encode on the card (rotate, kernel-1
   assignment on bf16 operands, residual, PQ argmin, nibble pack), host
-  rows first uploaded window by window; the codes, assignments and
-  positions then take one tail, picked once per fill: spilled to disk
-  and packed into transposed CSR lists (``lists.py``) written straight
-  to the artifact (``lists_dir``), or collected in memory and packed
-  there. Codes bound for the host download one chunk behind the encode,
+  rows first uploaded window by window through pinned buffers on a copy
+  stream, so a window's upload overlaps the encode before it; the codes,
+  assignments and positions then take one tail, picked once per fill:
+  spilled to disk and packed into transposed CSR lists (``lists.py``)
+  written straight to the artifact (``lists_dir``), or collected in
+  memory and packed there. Codes bound for the host download one chunk behind the encode,
   through pinned memory. An in-memory fill on the card whose pack fits
   its free memory keeps the codes there and packs them there; the host
   keeps one download of the lists, and the install keeps the packed
@@ -99,6 +100,7 @@ import mmap
 import shutil
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -214,41 +216,122 @@ def _take(arr: np.ndarray, rows, lo: int, hi: int, out=None):
     return np.take(arr, rows[lo:hi], axis=0, out=out, mode="clip")
 
 
+def _pieces(n: int, row_bytes: int, piece_bytes: int) -> list[tuple[int, int]]:
+    """Rows ``0:n`` of ``row_bytes`` each cut into consecutive ``(lo,
+    hi)`` pieces of at most ``piece_bytes``: every row once, in order."""
+    per = piece_bytes // row_bytes
+    if per < 1:
+        raise ValueError(f"{row_bytes}-byte rows do not fit {piece_bytes}-byte "
+                         f"staging buffers")
+    return [(lo, min(lo + per, n)) for lo in range(0, n, per)]
+
+
+def _copy_rows(out: np.ndarray, src: np.ndarray, pool: ThreadPoolExecutor,
+               threads: int) -> None:
+    """``out[:] = src``, its rows split over ``threads`` threads: the
+    caller's and ``threads - 1`` of ``pool``'s (numpy's copy releases the
+    interpreter's lock)."""
+    (lo, hi), *rest = _pieces(len(src), 1, -(-len(src) // threads))
+    parts = [pool.submit(np.copyto, out[a:b], src[a:b]) for a, b in rest]
+    np.copyto(out[lo:hi], src[lo:hi])
+    for p in parts:
+        p.result()
+
+
 class _PinnedRing:
     """Two pinned host buffers that alternate, so reading the next chunk
     of an array into one overlaps the card's copy out of the other. A
     buffer is refilled only once the copy out of it has finished (one
-    event per buffer), so the ring carries over from call to call."""
+    event per buffer), so the ring carries over from call to call. With
+    ``threads`` > 1 a chunk of plain rows is read by that many threads at
+    once (``_copy_rows``); a row selection is read by one."""
 
-    def __init__(self, chunk_bytes: int):
+    def __init__(self, chunk_bytes: int, *, threads: int = 1):
         self.chunk_bytes = chunk_bytes
         self.bufs = [torch.empty(chunk_bytes, dtype=torch.uint8, pin_memory=True)
                      for _ in range(2)]
         self.done = [None, None]
         self.turn = 0
+        self.threads = threads
+        self.pool = ThreadPoolExecutor(threads - 1) if threads > 1 else None
 
-    def copy(self, arr: np.ndarray, rows, out: torch.Tensor) -> None:
+    def copy(self, arr: np.ndarray, rows, out: torch.Tensor, stream=None) -> None:
         """Enqueue the copy of ``arr`` (or of its rows ``rows``) into the
-        device bytes ``out`` [n, row_bytes] on the current stream. Returns
-        once the last chunk is read into pinned memory."""
+        device bytes ``out`` [n, row_bytes] on ``stream`` (the current
+        stream by default). Returns once the last chunk is read into
+        pinned memory."""
         n, row_bytes = out.shape
-        per = self.chunk_bytes // row_bytes
-        if per < 1:
-            raise ValueError(f"{row_bytes}-byte rows do not fit {self.chunk_bytes}-byte "
-                             f"staging buffers")
-        stream = torch.cuda.current_stream(out.device)
-        for lo in range(0, n, per):
-            hi = min(lo + per, n)
+        if stream is None:
+            stream = torch.cuda.current_stream(out.device)
+        for lo, hi in _pieces(n, row_bytes, self.chunk_bytes):
             b = self.turn
             self.turn ^= 1
             if self.done[b] is not None:
                 self.done[b].synchronize()
             buf = self.bufs[b][: (hi - lo) * row_bytes]
-            _take(arr, rows, lo, hi,
-                  out=buf.numpy().view(arr.dtype).reshape((hi - lo,) + arr.shape[1:]))
-            out[lo:hi].copy_(buf.view(hi - lo, row_bytes), non_blocking=True)
+            dst = buf.numpy().view(arr.dtype).reshape((hi - lo,) + arr.shape[1:])
+            if self.pool is None or rows is not None:
+                _take(arr, rows, lo, hi, out=dst)
+            else:
+                _copy_rows(dst, arr[lo:hi], self.pool, self.threads)
+            with torch.cuda.stream(stream):
+                out[lo:hi].copy_(buf.view(hi - lo, row_bytes), non_blocking=True)
             self.done[b] = torch.cuda.Event()
             self.done[b].record(stream)
+
+
+class _RowStager:
+    """Host f32 rows onto the card off the compute stream: the fill's host
+    route (``IVFPQIndex.encode``). Each window is read piece by piece into
+    a ``_PinnedRing`` of ``PIECE_BYTES`` buffers, by the process's
+    intra-op threads, and copied across the link on a stream of its own
+    into one of ``WINDOWS`` card windows taken in turn. The compute stream
+    waits for each window's copy and nothing else waits for the compute stream,
+    so the card encodes one window while the next crosses the link. A
+    window is written again only after the compute stream's last use of
+    it (``used``), so the stager carries over from call to call. The
+    caller's rows are read and never kept: the pinned buffers are the
+    stager's own, and the windows go at ``release``."""
+
+    # a piece of the pinned ring: the host's read of one piece overlaps
+    # the link's copy of the one before
+    PIECE_BYTES = 32 << 20
+    # card windows, taken in turn: a window's copy waits for the encode of
+    # the rows copied into it before (a third bought nothing on the card)
+    WINDOWS = 2
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.ring = _PinnedRing(self.PIECE_BYTES, threads=torch.get_num_threads())
+        self.windows = [None] * self.WINDOWS
+        self.free = [torch.cuda.Event() for _ in range(self.WINDOWS)]
+        self.last = self.WINDOWS - 1
+
+    def upload(self, x: np.ndarray) -> torch.Tensor:
+        """Rows ``x`` [n, D] (contiguous f32) -> the same rows in a card
+        window, the current stream ordered after their copy."""
+        w = self.last = (self.last + 1) % self.WINDOWS
+        compute = torch.cuda.current_stream(self.device)
+        if self.windows[w] is None or self.windows[w].numel() < x.size:
+            self.windows[w] = torch.empty(x.size, dtype=torch.float32, device=self.device)
+            # the block's earlier users on the compute stream come first
+            self.free[w].record(compute)
+        out = self.windows[w][:x.size].view(x.shape)
+        self.stream.wait_event(self.free[w])
+        self.ring.copy(x, None, out.view(len(x), -1).view(torch.uint8), stream=self.stream)
+        compute.wait_stream(self.stream)
+        return out
+
+    def used(self) -> None:
+        """The compute stream's last use of the window ``upload`` returned
+        is enqueued: the window is written again only after it."""
+        self.free[self.last].record(torch.cuda.current_stream(self.device))
+
+    def release(self) -> None:
+        """Drop the card windows (kept from one ``upload`` to the next for
+        one fill)."""
+        self.windows = [None] * self.WINDOWS
 
 
 def _upload(arr: np.ndarray, device: torch.device, *, rows=None,
@@ -376,6 +459,8 @@ class IVFPQIndex:
         self.train_stats: dict = {}
         # seconds and rows of the last fill (see fill_stream)
         self.fill_stats: dict = {}
+        # host rows' staging onto the card (encode), made at first use
+        self._stager: _RowStager | None = None
         self.packed: CSRLists | None = None
         self.n = 0
         self.last_scan_stats: dict = {}
@@ -655,16 +740,22 @@ class IVFPQIndex:
         lists, so the fill calls nothing below it. A tensor goes to the
         device whole. Host rows go up as they are, ``batch_rows`` at a
         time, each window under a ``fill.upload`` span and its
-        normalisation under a ``fill.normalize`` span. Either is normalised
-        on the device when spherical and takes the fused encode there.
+        normalisation under a ``fill.normalize`` span; on the card through
+        this index's ``_RowStager`` (pinned buffers, a copy stream), so a
+        window's copy overlaps the encode of the window, or the call,
+        before it. Either is normalised on the device when spherical and
+        takes the fused encode there.
 
         ``timing``: a fill's stage seconds (``fill_stream``'s call). The
-        windows' spans add their host seconds (the normalisation's: the
-        enqueue) to its ``upload_s`` and ``normalize_s``, and the outputs
-        stay tensors on this index's device for the fill's tail, which
-        downloads them once where the host takes them (``_on_host``).
-        Without it the outputs download once and return as numpy
-        arrays."""
+        windows' spans add their host seconds (the upload's: the wait for
+        a pinned buffer, the read into it and the enqueue; the
+        normalisation's: the enqueue) to its ``upload_s`` and
+        ``normalize_s``, the rows staged through pinned memory to its
+        ``upload_pinned_rows``, and the outputs stay tensors on this
+        index's device for the fill's tail, which downloads them once
+        where the host takes them (``_on_host``); the fill releases the
+        stager's card windows at its end. Without it the outputs download
+        once and return as numpy arrays, and the windows go at once."""
         if not self.is_trained:
             raise RuntimeError("train() before encode()")
         if isinstance(vectors, torch.Tensor):
@@ -675,17 +766,34 @@ class IVFPQIndex:
             assign = torch.empty(len(x), dtype=torch.int64, device=self.device)
             codes = torch.empty((len(x), self.code_bytes), dtype=torch.uint8, device=self.device)
             spans = {} if timing is None else timing
+            stager = self._row_stager()
             for lo in range(0, len(x), batch_rows):
                 xh = np.ascontiguousarray(x[lo:lo + batch_rows])
-                with _timed(spans, "upload_s", "fill.upload", bytes=xh.nbytes):
-                    xc = torch.from_numpy(xh).to(self.device)
+                with _timed(spans, "upload_s", "fill.upload", bytes=xh.nbytes,
+                            pinned=int(stager is not None)):
+                    xc = torch.from_numpy(xh).to(self.device) if stager is None \
+                        else stager.upload(xh)
                 if self.spherical:
                     with _timed(spans, "normalize_s", "fill.normalize", rows=len(xc)):
                         xc = _normalize_rows_t(xc)
                 assign[lo:lo + len(xc)], codes[lo:lo + len(xc)] = self._encode_fused(xc)
+                if stager is not None:
+                    stager.used()
+                    spans["upload_pinned_rows"] = spans.get("upload_pinned_rows", 0) + len(xh)
+            if stager is not None and timing is None:
+                stager.release()
         if timing is not None:
             return assign, codes
         return assign.cpu().numpy(), codes.cpu().numpy()
+
+    def _row_stager(self) -> _RowStager | None:
+        """This index's ``_RowStager``, made at its first host rows on the
+        card; None off the card."""
+        if self.device.type != "cuda":
+            return None
+        if self._stager is None:
+            self._stager = _RowStager(self.device)
+        return self._stager
 
     def fill(self, vectors: np.ndarray, positions: np.ndarray | None = None) -> None:
         if positions is None:
@@ -713,23 +821,31 @@ class IVFPQIndex:
         codes on the host, ``_on_host``: none where the card packs), spill
         (``fill.collect``: the chunks' codes kept in memory, or spilled to
         disk, and where the card pack gives way midway, the move of what
-        the card had collected to the host), pack, install, and, for host rows, upload (the host-to-card
-        copies) and normalize (rows to unit norm on the card: the
-        enqueue), both inside encode; ``pack_on_card`` counts the rows the
-        card packed."""
+        the card had collected to the host), pack, install, and, for host
+        rows, upload (the host's side of the host-to-card copies: on the
+        card the wait for a pinned buffer, the read into it and the
+        enqueue) and normalize (rows to unit norm on the card: the
+        enqueue), both inside encode; ``upload_pinned_rows`` counts the
+        host rows staged through pinned memory (0 off the card) and
+        ``pack_on_card`` the rows the card packed."""
         from ..utils import prefetch_iterator
 
         self._refuse_mutation("fill")
         assert_exact_f32()
         with trace.span("fill.job"):
             stream = prefetch_iterator(iter(chunks), depth=2)
-            timing = dict.fromkeys(("normalize_s", "upload_s", "encode_s"), 0.0)
+            timing = {**dict.fromkeys(("normalize_s", "upload_s", "encode_s"), 0.0),
+                      "upload_pinned_rows": 0}
 
             def encoded():
-                for vectors, positions in stream:
-                    with _timed(timing, "encode_s", "fill.encode"):
-                        assign, codes = self.encode(vectors, timing=timing)
-                    yield assign, codes, np.asarray(positions)
+                try:
+                    for vectors, positions in stream:
+                        with _timed(timing, "encode_s", "fill.encode"):
+                            assign, codes = self.encode(vectors, timing=timing)
+                        yield assign, codes, np.asarray(positions)
+                finally:
+                    if self._stager is not None:
+                        self._stager.release()
 
             self.fill_encoded_stream(encoded(), lists_dir=lists_dir)
             self.fill_stats.update(timing)

@@ -9,7 +9,9 @@
 - One route for host and card rows: host rows go up as they are and
   take the device chunks' normalisation and encode, so both give the
   same assignments, codes and lists bit for bit, and no host row is
-  normalised in numpy.
+  normalised in numpy. On the card host rows are staged through pinned
+  buffers: the pieces of a window cover every row once, in order, and
+  the read split over threads is a plain copy.
 - Cross-package search: an index trained and filled by the port, in
   each train mode, saved, opened by the JAX package and searched there
   (``scan_impl="map"``) gives the port's own positions (scores within
@@ -22,6 +24,8 @@
 import functools
 import json
 import shutil
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -175,6 +179,37 @@ def test_host_and_card_rows_take_one_route(jax_built, batch_rows):
                         batch_rows)
     for h, c in zip(host, card):
         assert h.dtype == c.dtype and h.tobytes() == c.tobytes()
+
+
+
+@pytest.mark.parametrize("n,row_bytes,piece_bytes", [
+    (0, 4096, 1 << 20), (1, 4096, 4096), (8192, 4096, 32 << 20), (65536, 4096, 32 << 20),
+    (65537, 4096, 32 << 20), (1000, 256, 65536), (7, 3, 10)])
+def test_staging_pieces_cover_every_row_once_in_order(n, row_bytes, piece_bytes):
+    """The host rows' staging cuts a window into consecutive pieces that
+    each fit a pinned buffer, all full but the last."""
+    pieces = port_ivfpq._pieces(n, row_bytes, piece_bytes)
+    assert [r for lo, hi in pieces for r in range(lo, hi)] == list(range(n))
+    assert all(0 < (hi - lo) * row_bytes <= piece_bytes for lo, hi in pieces)
+    assert all(hi - lo == piece_bytes // row_bytes for lo, hi in pieces[:-1])
+
+
+def test_staging_pieces_refuse_rows_wider_than_a_piece():
+    with pytest.raises(ValueError, match="do not fit"):
+        port_ivfpq._pieces(4, 4096, 4095)
+
+
+@pytest.mark.parametrize("rows,threads", [(1, 4), (5, 4), (1000, 8), (1003, 3), (64, 1)])
+def test_threaded_row_copy_is_a_plain_copy(rows, threads):
+    """The staging's read split over threads copies every row of a
+    read-only array once, and warns of nothing."""
+    src = np.random.default_rng(rows).standard_normal((rows, 33)).astype(np.float32)
+    src.flags.writeable = False
+    out = np.zeros_like(src)
+    with ThreadPoolExecutor(max(threads - 1, 1)) as pool, warnings.catch_warnings():
+        warnings.simplefilter("error")
+        port_ivfpq._copy_rows(out, src, pool, threads)
+    assert out.tobytes() == src.tobytes()
 
 
 BIG = 1 << 40

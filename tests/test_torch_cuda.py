@@ -533,6 +533,72 @@ def test_host_and_device_groups_fill_alike(cuda):
         assert h.dtype == c.dtype and h.tobytes() == c.tobytes(), name
 
 
+def test_host_rows_staged_through_pinned_buffers_fill_alike(cuda, monkeypatch):
+    """Host rows go up through the index's pinned staging (``_RowStager``),
+    in pieces that divide neither the window nor the group, with more
+    pieces and windows than pinned buffers and card windows, so each is
+    refilled while the card works: the assignments, codes and packed
+    lists equal those of the same rows passed as card tensors bit for
+    bit. A read-only array warns of nothing, every host row counts as
+    staged, each upload span says so, and the fill lets its card windows
+    go; the pinned buffers hold at most two windows' bytes."""
+    import functools
+    import warnings
+
+    from abstracts_search_tpu_torch.index import IVFPQIndex
+    from abstracts_search_tpu_torch.index import ivfpq as mod
+    from abstracts_search_tpu_torch.utils import trace
+
+    # 64 KiB pieces: 256 rows of 64 f32
+    monkeypatch.setattr(mod._RowStager, "PIECE_BYTES", 64 << 10)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n_lists, dim, m, group, window = 512, 64, 16, 7000, 1500
+    norm = torch.nn.functional.normalize
+    rot, _ = torch.linalg.qr(torch.randn((dim, dim), device=cuda, generator=g))
+    params = (norm(torch.randn((n_lists, dim), device=cuda, generator=g), dim=1).cpu().numpy(),
+              0.05 * torch.randn((m, 16, dim // m), device=cuda, generator=g).cpu().numpy(),
+              rot.cpu().numpy())
+    x = 3 * torch.randn((4 * group + 123, dim), device=cuda, generator=g)
+    xh = x.cpu().numpy()
+    xh.flags.writeable = False
+    pos = np.arange(len(xh), dtype=np.int64)
+    cuts = [(lo, min(lo + group, len(xh))) for lo in range(0, len(xh), group)]
+
+    def fill(host):
+        idx = IVFPQIndex(n_lists, dim, pq_m=m, pq_nbits=4, seg_size=64, device=cuda)
+        idx.set_params(*params)
+        idx.encode = functools.partial(IVFPQIndex.encode, idx, batch_rows=window)
+        idx.fill_stream(iter([(xh[a:b] if host else x[a:b], pos[a:b]) for a, b in cuts]))
+        return idx
+
+    trace.start()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            host = fill(True)
+            ha, hc = host.encode(xh, batch_rows=window)
+        spans = trace.collect()
+    finally:
+        trace.stop()
+    assert not [w for w in caught if "writable" in str(w.message)], caught
+    card = fill(False)
+    da, dc = card.encode(x)
+    np.testing.assert_array_equal(ha, da)
+    np.testing.assert_array_equal(hc, dc)
+    for name in ("data", "row_ids", "seg_valid", "seg_start", "seg_cnt"):
+        h, c = getattr(host.packed, name), getattr(card.packed, name)
+        assert h.dtype == c.dtype and h.tobytes() == c.tobytes(), name
+    assert host.fill_stats["upload_pinned_rows"] == len(xh)
+    assert card.fill_stats["upload_pinned_rows"] == 0
+    ups = [s["counts"] for s in spans if s["name"] == "fill.upload"]
+    windows = sum(-(-(b - a) // window) for a, b in cuts) + -(-len(xh) // window)
+    assert ups == [{"bytes": u["bytes"], "pinned": 1} for u in ups] and len(ups) == windows
+    assert sum(u["bytes"] for u in ups) == 2 * xh.nbytes
+    stager = host._stager
+    assert stager.windows == [None] * stager.WINDOWS
+    assert sum(b.nbytes for b in stager.ring.bufs) <= 2 * window * dim * 4
+
+
 def test_card_pack_fill_matches_the_host_pack(cuda, monkeypatch):
     """An in-memory fill on the card packs its lists there (host and
     device groups, positions out of order): the lists equal a host-pack

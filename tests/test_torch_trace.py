@@ -30,7 +30,7 @@ from abstracts_search_tpu_torch.utils.trace import StageTimer, profile_scope
 
 N_LISTS, DIM, M, SEG = 8, 32, 8, 32
 FILL_KEYS = {"rows", "seconds", "rows_per_s", "spill_s", "pack_s", "install_s", "encode_s",
-             "download_s", "normalize_s", "upload_s", "pack_on_card"}
+             "download_s", "normalize_s", "upload_s", "upload_pinned_rows", "pack_on_card"}
 # what a fill through ``lists_dir`` adds: the mesh's barrier and this rank's share
 SPILL_KEYS = {"barrier_s", "rank", "mesh_size", "rank_rows", "rank_chunks"}
 
@@ -351,7 +351,8 @@ def test_fill_stages_are_spans_and_fill_stats_keep_their_keys(trained, tmp_path,
     # the fill holds the codes on the host: each chunk's come there once,
     # under one fill.download
     assert [s["parent"] for s in names["fill.download"]] == [job["id"]] * len(groups)
-    assert st["pack_on_card"] == 0
+    # off the card no host row is staged through pinned memory
+    assert st["pack_on_card"] == st["upload_pinned_rows"] == 0
     if spill:
         ref = index()
         ref.fill_stream(iter(groups))
@@ -366,7 +367,8 @@ def test_fill_stages_are_spans_and_fill_stats_keep_their_keys(trained, tmp_path,
     assert [children(spans, enc) for enc in names["fill.encode"]] == \
         [["fill.upload", "fill.normalize"] if h else [] for h in hosts]
     assert len(names["fill.normalize"]) == len(names["fill.upload"]) == sum(hosts)
-    assert [u["counts"] for u in names["fill.upload"]] == [{"bytes": 400 * DIM * 4}] * sum(hosts)
+    assert [u["counts"] for u in names["fill.upload"]] == \
+        [{"bytes": 400 * DIM * 4, "pinned": 0}] * sum(hosts)
     # each stage's seconds are the host seconds of its spans
     for key, name in (("normalize_s", "fill.normalize"), ("upload_s", "fill.upload"),
                       ("spill_s", "fill.collect"), ("pack_s", "fill.pack"),
