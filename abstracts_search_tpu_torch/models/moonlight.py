@@ -62,12 +62,17 @@ Where this departs from HF (the numbers of the qwen2 module's rules):
 
 Spans (``utils/trace.py``): ``mla.attention`` around each layer's MLA,
 ``moe.route`` around the router, the top-k and the permutation,
-``moe.experts`` (tokens, token-expert pairs) around the grouped product,
-the combine and the shared expert; with the input's device, for CUDA
-events. ``last_moe_stats`` holds, for the last forward, the tokens the
-expert layers computed and how many of them were padding, the latter a
-tensor on the input's device (read it after the device work; nothing
-syncs here).
+``moe.experts`` (tokens, token-expert pairs, held pairs) around the
+grouped product, the combine and the shared expert; with the input's
+device, for CUDA events. ``last_moe_stats`` holds, for the last forward,
+the tokens the expert layers computed and how many of them were padding,
+the latter a tensor on the input's device (read it after the device
+work; nothing syncs here), and the routed and held token-expert pairs.
+
+The sparse layer may hold a share of the experts (``MoE(held=)``, Kimi
+Linear's expert-parallel cut): it routes over all of them and computes
+its own experts' part. Moonlight's layers hold every expert and run the
+path above unchanged.
 
 The model is held whole on one device: over a tensor-parallel group it
 is refused (``parallel/sharding.py`` has Qwen2's rules only).
@@ -148,9 +153,14 @@ def _apply_rope(x, cos, sin):
 
 
 class MLA(nn.Module):
-    def __init__(self, cfg: MoonlightConfig, device):
+    """``rope=False``: the rope dims of q and of the shared key are used
+    unrotated (Kimi Linear's ``mla_use_nope``; ``cos`` and ``sin`` are
+    then not read)."""
+
+    def __init__(self, cfg: MoonlightConfig, device, rope: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.rope = rope
         h, nope, rope = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         self.q_proj = _linear(cfg.hidden_size, h * (nope + rope), False, cfg, device)
         self.kv_a_proj_with_mqa = _linear(cfg.hidden_size, cfg.kv_lora_rank + rope, False, cfg,
@@ -170,8 +180,10 @@ class MLA(nn.Module):
             c, k_pe = self.kv_a_proj_with_mqa(x).split([cfg.kv_lora_rank, rope], -1)
             kv = self.kv_b_proj(self.kv_a_layernorm(c)).view(b, t, h, nope + vd)
             k_nope, v = kv.split([nope, vd], -1)
-            q = torch.cat([q_nope, _apply_rope(q_pe, cos, sin)], -1)
-            k_pe = _apply_rope(k_pe.view(b, t, 1, rope), cos, sin)
+            k_pe = k_pe.view(b, t, 1, rope)
+            if self.rope:
+                q_pe, k_pe = _apply_rope(q_pe, cos, sin), _apply_rope(k_pe, cos, sin)
+            q = torch.cat([q_nope, q_pe], -1)
             k = torch.cat([k_nope, k_pe.expand(b, t, h, rope)], -1)
             scores = torch.einsum("bthd,bshd->bhts", q, k).float()
             scores = scores * (nope + rope) ** -0.5 + mask_bias
@@ -194,11 +206,13 @@ class Router(nn.Module):
 
 
 class Experts(nn.Module):
-    """The routed experts, stacked: ``w13`` [E, 2I, H], ``w2`` [E, H, I]."""
+    """The routed experts held here, stacked: ``w13`` [E, 2I, H], ``w2``
+    [E, H, I] (E: ``n``, by default all of the router's)."""
 
-    def __init__(self, cfg: MoonlightConfig, device):
+    def __init__(self, cfg: MoonlightConfig, device, n: int | None = None):
         super().__init__()
-        e, h, i = cfg.n_routed_experts, cfg.hidden_size, cfg.moe_intermediate_size
+        e = cfg.n_routed_experts if n is None else n
+        h, i = cfg.hidden_size, cfg.moe_intermediate_size
         self.w13 = nn.Parameter(torch.empty((e, 2 * i, h), dtype=cfg.dtype, device=device))
         self.w2 = nn.Parameter(torch.empty((e, h, i), dtype=cfg.dtype, device=device))
 
@@ -217,36 +231,56 @@ def route(x, weight, bias, cfg: MoonlightConfig):
     return idx, w * cfg.routed_scaling_factor
 
 
-def permute(x, idx, n_experts: int):
+def permute(x, idx, n_experts: int, held: tuple[int, int] | None = None):
     """Token-expert pairs sorted by expert (tokens in order within one):
-    -> (order [N k]: each sorted pair's flat index t * k + slot, offsets
-    [E + 1] int32, rows [N k, H]: the pairs' tokens)."""
+    -> (order [P]: each sorted pair's flat index t * k + slot, offsets
+    [E + 1] int32, rows [P, H]: the pairs' tokens). ``held``: the first
+    and the count of the experts held here, numbered from 0 in
+    ``offsets``; the pairs of other experts are dropped, so P is read
+    back to the host (one sync). None: every expert, P = N k, no sync."""
     k = idx.shape[1]
     flat = idx.flatten()
+    if held is not None:
+        first, n_experts = held
+        flat = flat - first
+        flat = torch.where((flat >= 0) & (flat < n_experts), flat, n_experts)
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=n_experts)
+    counts = torch.bincount(flat, minlength=n_experts)[:n_experts]
     offsets = torch.zeros(n_experts + 1, dtype=torch.int32, device=x.device)
     offsets[1:] = torch.cumsum(counts, 0)
+    if held is not None:
+        order = order[:int(offsets[-1])]
     return order, offsets, x[order // k]
 
 
 def combine(y_sorted, order, w):
-    """Expert outputs of the sorted pairs [N k, H] f32 -> each token's
-    weighted sum over its k experts [N, H] f32 (in slot order)."""
+    """Expert outputs of the sorted pairs [P, H] f32 -> each token's
+    weighted sum over its k experts [N, H] f32 (in slot order); a pair
+    not among the P (an expert not held) adds nothing."""
     n, k = w.shape
-    y = torch.empty_like(y_sorted)
+    y = (torch.empty_like(y_sorted) if order.numel() == w.numel()
+         else y_sorted.new_zeros((w.numel(), y_sorted.shape[1])))
     y[order] = y_sorted
     return (y.view(n, k, -1) * w[:, :, None]).sum(1)
 
 
 class MoE(nn.Module):
-    def __init__(self, cfg: MoonlightConfig, device):
+    """``held``: (first, count) of the routed experts this device holds
+    (an expert-parallel share); None holds them all. The router keeps
+    its full width either way; a share computes the part of the output
+    that its own experts give (``permute``, ``combine``), and the shared
+    experts whole. ``held_pairs``: the token-expert pairs the last
+    forward computed."""
+
+    def __init__(self, cfg: MoonlightConfig, device, held: tuple[int, int] | None = None):
         super().__init__()
         self.cfg = cfg
+        self.held = held
         self.gate = Router(cfg, device)
-        self.experts = Experts(cfg, device)
+        self.experts = Experts(cfg, device, None if held is None else held[1])
         self.shared_experts = MLP(cfg, device,
                                   _width(cfg, cfg.n_shared_experts * cfg.moe_intermediate_size))
+        self.held_pairs = 0
 
     def forward(self, x):
         cfg = self.cfg
@@ -254,8 +288,10 @@ class MoE(nn.Module):
         x2 = x.reshape(b * t, hd)
         with trace.span("moe.route", device=x.device):
             idx, w = route(x2, self.gate.weight, self.gate.e_score_correction_bias, cfg)
-            order, offsets, rows = permute(x2, idx, cfg.n_routed_experts)
-        with trace.span("moe.experts", device=x.device, tokens=b * t, pairs=idx.numel()):
+            order, offsets, rows = permute(x2, idx, cfg.n_routed_experts, self.held)
+        self.held_pairs = order.numel()
+        with trace.span("moe.experts", device=x.device, tokens=b * t, pairs=idx.numel(),
+                        held_pairs=self.held_pairs):
             y = grouped_swiglu(rows, offsets, self.experts.w13, self.experts.w2)
             out = combine(y, order, w).to(cfg.dtype) + self.shared_experts(x2)
         return out.view(b, t, hd)
@@ -274,6 +310,16 @@ class Block(nn.Module):
     def forward(self, x, mask_bias, cos, sin):
         x = x + self.self_attn(self.input_layernorm(x), mask_bias, cos, sin)
         return x + self.mlp(self.post_attention_layernorm(x))
+
+
+def moe_stats(layers, attention_mask, top_k: int) -> dict:
+    """The expert layers' work in the last forward: tokens, padding
+    tokens (a tensor on the mask's device), routed and held token-expert
+    pairs."""
+    moe = [layer.mlp for layer in layers if isinstance(layer.mlp, MoE)]
+    n = attention_mask.numel()
+    return {"tokens": len(moe) * n, "pad_tokens": len(moe) * (attention_mask == 0).sum(),
+            "pairs": len(moe) * n * top_k, "held_pairs": sum(m.held_pairs for m in moe)}
 
 
 def init_random_(module: nn.Module, generator: torch.Generator, param_dtype,
@@ -326,7 +372,5 @@ class MoonlightEncoder(nn.Module):
         mask_bias = _mask_bias(attention_mask, self.causal)
         for layer in self.layers:
             x = layer(x, mask_bias, cos, sin)
-        n = cfg.n_moe_layers
-        self.last_moe_stats = {"tokens": n * b * t,
-                               "pad_tokens": n * (attention_mask == 0).sum()}
+        self.last_moe_stats = moe_stats(self.layers, attention_mask, cfg.num_experts_per_tok)
         return self.norm(x)

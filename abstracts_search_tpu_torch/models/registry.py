@@ -192,17 +192,68 @@ def _moonlight_config(hf: dict):
     )
 
 
+# a kimi_linear config.json's settings the port's Kimi Linear backbone
+# implements, and no other
+_KIMI_FIXED = {"q_lora_rank": None, "num_expert_group": 1, "topk_group": 1,
+               "moe_router_activation_func": "sigmoid", "hidden_act": "silu",
+               "moe_layer_freq": 1, "mla_use_nope": True}
+
+
+def _kimi_linear_config(hf: dict):
+    """A ``kimi_linear`` ``config.json`` -> the port's KimiLinearConfig;
+    refused where it asks for what the backbone does not implement. An
+    ``expert_share`` entry (``router_experts``, ``first``, ``count``: a
+    device's share of each expert layer, ``num_experts`` then counting
+    the held experts) holds that share; without one, every expert."""
+    from .kimi_linear import KimiLinearConfig
+
+    odd = {k: hf.get(k) for k, v in _KIMI_FIXED.items() if hf.get(k, v) != v}
+    lin = hf["linear_attn_config"]
+    n = hf["num_hidden_layers"]
+    kda, full = sorted(lin["kda_layers"]), sorted(lin["full_attn_layers"])
+    if sorted(kda + full) != list(range(1, n + 1)):
+        odd["linear_attn_config"] = lin
+    if odd:
+        raise ValueError(f"the Kimi Linear backbone implements {_KIMI_FIXED} and a "
+                         f"linear_attn_config that splits the layers into kda_layers and "
+                         f"full_attn_layers; this config.json asks for {odd}")
+    share = hf.get("expert_share") or {"router_experts": hf["num_experts"], "first": 0,
+                                       "count": hf["num_experts"]}
+    if share["count"] != hf["num_experts"]:
+        raise ValueError(f"num_experts ({hf['num_experts']}) must count the held experts of "
+                         f"expert_share ({share})")
+    return KimiLinearConfig(
+        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        moe_intermediate_size=hf["moe_intermediate_size"], num_layers=n,
+        first_k_dense_replace=hf["first_k_dense_replace"], kda_layers=tuple(kda),
+        kda_num_heads=lin["num_heads"], kda_head_dim=lin["head_dim"],
+        short_conv_kernel_size=lin["short_conv_kernel_size"],
+        num_heads=hf["num_attention_heads"], kv_lora_rank=hf["kv_lora_rank"],
+        qk_nope_head_dim=hf["qk_nope_head_dim"], qk_rope_head_dim=hf["qk_rope_head_dim"],
+        v_head_dim=hf["v_head_dim"], n_routed_experts=share["router_experts"],
+        expert_first=share["first"], expert_count=share["count"],
+        num_experts_per_tok=hf["num_experts_per_token"],
+        n_shared_experts=hf["num_shared_experts"],
+        routed_scaling_factor=hf["routed_scaling_factor"],
+        norm_topk_prob=hf["moe_renormalize"], rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+    )
+
+
 def _backbone_config(hf: dict):
     """A HF ``config.json`` -> the port's backbone config, by its
     ``model_type``: ``qwen2`` (the default) a Qwen2Config, ``deepseek_v3``
-    a MoonlightConfig."""
+    a MoonlightConfig, ``kimi_linear`` a KimiLinearConfig."""
     from .qwen2 import Qwen2Config
 
     model_type = hf.get("model_type", "qwen2")
     if model_type == "deepseek_v3":
         return _moonlight_config(hf)
+    if model_type == "kimi_linear":
+        return _kimi_linear_config(hf)
     if model_type != "qwen2":
-        raise ValueError(f"no backbone for model_type {model_type!r} (qwen2, deepseek_v3)")
+        raise ValueError(f"no backbone for model_type {model_type!r} (qwen2, deepseek_v3, "
+                         f"kimi_linear)")
     return Qwen2Config(
         vocab_size=hf["vocab_size"],
         hidden_size=hf["hidden_size"],
@@ -241,7 +292,7 @@ def _convert_from_torch(cfg: Config, *, return_hf: bool = False):
         dense_w = torch.eye(cfg.embed_dim, backbone.hidden_size)
         dense_b = None
     sd = {k: v for k, v in sd.items() if not k.startswith("vector_linear.")}
-    params = stella_state_dict(sd, dense_w, dense_b)
+    params = stella_state_dict(sd, dense_w, dense_b, held=getattr(backbone, "held", None))
     if return_hf:
         # the verification oracle is computed INDEPENDENTLY of the
         # converted state dict (one built from it would match its own
@@ -391,13 +442,14 @@ def _stella_config_to_json(scfg) -> dict:
 
 
 def _stella_config_from_json(d: dict):
+    from .kimi_linear import KimiLinearConfig
     from .moonlight import MoonlightConfig
     from .qwen2 import Qwen2Config
     from .stella import StellaConfig
 
     bb = dict(d["backbone"])
-    backbone = {"qwen2": Qwen2Config, "deepseek_v3": MoonlightConfig}[
-        bb.pop("model_type", "qwen2")]
+    backbone = {"qwen2": Qwen2Config, "deepseek_v3": MoonlightConfig,
+                "kimi_linear": KimiLinearConfig}[bb.pop("model_type", "qwen2")]
     return StellaConfig(
         backbone=backbone(**bb), mrl_dim=d["mrl_dim"],
         pooling=d["pooling"], causal=d["causal"], normalize=d["normalize"],

@@ -61,8 +61,8 @@ class TPLayout:
 
 def tp_layout(cfg, tp: int = 1, tp_rank: int = 0) -> TPLayout:
     """The layout of rank ``tp_rank`` of ``tp`` for a Qwen2 config (or a
-    stella config's backbone); any other backbone (Moonlight's) is
-    refused. Refuses a ``tp`` that does not divide the
+    stella config's backbone); any other backbone (Moonlight's, Kimi
+    Linear's) is refused. Refuses a ``tp`` that does not divide the
     query heads and the intermediate size, or whose ranks would share KV
     heads unevenly (``kv % tp`` and ``tp % kv`` both nonzero)."""
     cfg = getattr(cfg, "backbone", cfg)

@@ -31,7 +31,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
           token (49,152 and 98,304 token-expert pairs), loads by Zipf's
           law over a shuffled expert order with an eighth of the experts
           idle; fails beyond 2e-3 of the largest output. CUDA-event and
-          profiler times beside the bound and the plain route's.
+          profiler times beside the bound and the plain route's. Then the
+          same at the Kimi Linear cell's forwards (128 held experts, H
+          2,304, I 1,024, 8 experts a token of which about half are held:
+          65,536 and 131,072 pairs), failing beyond 4e-3.
+  kda     the KDA kernels (ops/kda.py, csrc/kda.cu; the Kimi Linear
+          encoder's gated delta rule) against their plain route (the
+          token-by-token recurrence, f32) at the Kimi Linear cell's
+          forwards, 32 texts of 256 and of 512 tokens, 32 heads of 128,
+          log-decays log-uniform from -11 to -0.001 a step; fails beyond
+          2e-2 of the largest output. CUDA-event and profiler times
+          beside the bound (bytes: q, k, v, the f32 log-decays and beta
+          in, o out), the kernels' registers and spills.
+  kimi    the Kimi Linear encoder as the cell runs it, cut to its first
+          four layers (KDA with the dense MLP, KDA and KDA with experts,
+          MLA with experts) at the published widths, holding experts
+          0-127 of 256: its configuration read from the cell's file,
+          through registry._backbone_config, StellaEncoder (seeded) and
+          EmbeddingPipeline.embed_queries at the cell's forwards (32
+          texts at bucket 256, 32 at 512). The launch counts, zeroed just
+          before that call, must show every KDA and expert layer's
+          kernels in both forwards: the kda row's launches, and part of
+          the experts row's. Then the same call through the plain KDA
+          recurrence and expert loop, the router's choices replayed;
+          fails below a cosine of 0.999 for any text.
   flat    bench.py's configuration: 2,097,152 x 1024 bf16 unit vectors,
           128 queries, k 10, chunk 4096. The fast-mode top-k kernel
           against its plain version, QPS by CUDA events over chained
@@ -231,6 +254,7 @@ import argparse
 import gc
 import json
 import logging
+import math
 import os
 import re
 import shutil
@@ -281,12 +305,22 @@ KERNELS["experts"] = ("grouped_swiglu (experts)", "abstracts_search_tpu_torch/op
                       "none: the JAX package has no sparse-expert layer")
 # Moonlight-16B-A3B's routed experts: count, hidden and expert widths, a token's choices
 EXPERTS_E, EXPERTS_H, EXPERTS_I, EXPERTS_TOP = 64, 2048, 1408, 6
+# Kimi-Linear-48B-A3B's held share: 128 of 256 experts, widths, the held
+# choices of a token on average (8 of 256 chosen, half of them held)
+KIMI_E, KIMI_H, KIMI_I, KIMI_HELD_TOP = 128, 2304, 1024, 4
+# the Kimi Linear cell's configuration, and the layers phase kimi keeps
+# of it (1-based, as its linear_attn_config numbers them)
+KIMI_CONFIG = Path(__file__).resolve().parent / "portbench/configs/openalex_ivfpq_kimi_linear.json"
+KIMI_KDA_LAYERS, KIMI_MLA_LAYERS = (1, 2, 3), (4,)
+KERNELS["kda"] = ("kda_scan (KDA)", "abstracts_search_tpu_torch/csrc/kda.cu",
+                  "none: the JAX package has no linear-attention layer")
 # the kernel functions each row's wrapper launches, as the profiler names them
 DEVICE_NAMES = {"topk": ("range_kernel", "topk_merge_kernel", "topk_select_kernel"),
                 "topk_fast": ("range_kernel", "topk_merge_kernel", "topk_select_kernel"),
                 "adc_topk": ("adc_topk_kernel",), "adc_kernel_t": ("adc_cols_kernel",),
                 "adc_kernel_packed4": ("adc_rows_kernel",), "adc_kernel": ("adc_rows_kernel",),
-                "experts": ("experts_gate_up", "experts_down")}
+                "experts": ("experts_gate_up", "experts_down"),
+                "kda": ("kda_intra", "kda_state")}
 
 
 def emit(obj) -> None:
@@ -364,9 +398,9 @@ def counts() -> dict:
 
 
 def reset_counts() -> None:
-    from abstracts_search_tpu_torch.ops import adc, experts, topk
+    from abstracts_search_tpu_torch.ops import adc, experts, kda, topk
 
-    topk.launches = topk.fast_launches = adc.launches = experts.launches = 0
+    topk.launches = topk.fast_launches = adc.launches = experts.launches = kda.launches = 0
     for key in adc.scan_launches:
         adc.scan_launches[key] = 0
 
@@ -784,12 +818,24 @@ def check_kernels(seed: int):
 
 def experts_phase(seed: int):
     """The grouped expert kernel against its plain route at the Moonlight
-    cell's forwards (module docstring). -> (cases, the kernels row: the
-    larger shape, its launches those of the calls held against the plain
-    route)."""
+    cell's forwards, then at the Kimi Linear cell's (module docstring).
+    -> (cases, the kernels row: Moonlight's larger shape, its launches
+    those of the calls held against the plain route)."""
+    cases, launched = experts_cases(seed, EXPERTS_E, EXPERTS_H, EXPERTS_I, EXPERTS_TOP, 2e-3)
+    kimi, kimi_launched = experts_cases(seed, KIMI_E, KIMI_H, KIMI_I, KIMI_HELD_TOP, 4e-3)
+    row = {k: v for k, v in cases[-1].items() if k not in ("texts", "tokens", "tolerance")}
+    row.update(launches=launched + kimi_launched,
+               launches_from="experts phase, the calls held against the plain route (timing "
+                             "calls not counted): no search path runs a sparse-expert encoder")
+    return cases + kimi, row
+
+
+def experts_cases(seed: int, e: int, h: int, inter: int, top: int, tol: float):
+    """The kernel against its plain route on E experts of (H, I), at 32
+    texts of 256 and of 512 tokens with ``top`` pairs a token; fails
+    beyond ``tol`` of the largest output. -> (cases, launches)."""
     from abstracts_search_tpu_torch.ops import experts
 
-    e, h, inter = EXPERTS_E, EXPERTS_H, EXPERTS_I
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = np.random.default_rng(seed)
     w13 = (0.02 * torch.randn((e, 2 * inter, h), device="cuda", generator=g)).to(torch.bfloat16)
@@ -798,7 +844,7 @@ def experts_phase(seed: int):
     reset_counts()
     launched = 0
     for texts, tokens in ((32, 256), (32, 512)):
-        pairs = texts * tokens * EXPERTS_TOP
+        pairs = texts * tokens * top
         p = 1.0 / np.arange(1, e + 1)
         p[r.choice(e, e // 8, replace=False)] = 0.0
         loads = r.multinomial(pairs, r.permutation(p / p.sum()))
@@ -817,7 +863,7 @@ def experts_phase(seed: int):
                       "bf16")
         case = {"shape": [pairs, e, h, inter], "texts": texts, "tokens": tokens,
                 "max_rows": int(loads.max()), "idle_experts": e - touched,
-                "max_abs_err": err, "tolerance": 2e-3 * scale,
+                "max_abs_err": err, "tolerance": tol * scale,
                 "ms": cuda_ms(lambda: run("cuda")),
                 "device_ms": device_ms(lambda: run("cuda"), DEVICE_NAMES["experts"]),
                 "plain_ms": cuda_ms(lambda: run("torch"), reps=3, warmup=1),
@@ -825,17 +871,154 @@ def experts_phase(seed: int):
         cases.append(case)
         # f32 sums in another order; h rounded to bf16 may land one bf16
         # step apart where the sums straddle a rounding boundary
-        if err > 2e-3 * scale:
+        if err > tol * scale:
             raise AssertionError(f"the expert kernel disagrees with its plain route: {case}")
         del x, got, want
     if launched != 2 * len(cases):
         raise AssertionError(f"the expert kernel launched {launched} kernels in "
                              f"{len(cases)} calls (two a call)")
-    row = {k: v for k, v in cases[-1].items() if k not in ("texts", "tokens", "tolerance")}
-    row.update(launches=launched, launches_from="experts phase, the calls held against the "
-                                                "plain route (timing calls not counted): no "
-                                                "search path runs the Moonlight encoder")
+    return cases, launched
+
+
+def kda_phase(seed: int):
+    """The KDA kernel against its plain route at the Kimi Linear cell's
+    forwards (module docstring). -> (cases, the kernels row: the larger
+    shape)."""
+    from abstracts_search_tpu_torch.ops import _build, kda
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    heads, d = 32, 128
+    cases = []
+    reset_counts()
+    for texts, tokens in ((32, 256), (32, 512)):
+        shape = (texts, tokens, heads, d)
+        q = torch.nn.functional.normalize(torch.randn(shape, device="cuda", generator=g), dim=-1)
+        k = torch.nn.functional.normalize(torch.randn(shape, device="cuda", generator=g), dim=-1)
+        q, k = (q * d ** -0.5).to(torch.bfloat16), k.to(torch.bfloat16)
+        v = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+        u = torch.rand(shape, device="cuda", generator=g)
+        lg = -torch.exp(math.log(1e-3) + u * (math.log(11.0) - math.log(1e-3)))
+        beta = torch.rand(shape[:3], device="cuda", generator=g)
+        run = lambda impl: kda.kda_scan(q, k, v, lg, beta, impl=impl)  # noqa: E731
+        before = counts()["kda"]
+        got, want = run("cuda").float(), run("torch").float()
+        torch.cuda.synchronize()
+        launched = counts()["kda"] - before
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        n = texts * tokens * heads
+        # bytes: q, k, v (bf16), log-decays and beta (f32) in, o (bf16) out;
+        # operations: the recurrence's 7 d^2 a token and head
+        b, by = bound(n * (2 * 3 * d + 4 * d + 4 + 2 * d), 7.0 * n * d * d, "bf16")
+        case = {"shape": list(shape), "launches": launched, "max_abs_err": err,
+                "tolerance": 2e-2 * scale, "ms": cuda_ms(lambda: run("cuda")),
+                "device_ms": device_ms(lambda: run("cuda"), DEVICE_NAMES["kda"]),
+                "plain_ms": cuda_ms(lambda: run("torch"), reps=1, warmup=0),
+                "bound_ms": b, "bound_by": by, "library_ms": None}
+        if not cases:
+            case["ptxas"] = _build.ptxas_report("kda")
+        cases.append(case)
+        # bf16 operands of every product (the decayed keys and queries, the
+        # inverse, the state's copy, the writes) against the f32 recurrence
+        if err > 2e-2 * scale or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"the KDA kernel disagrees with its plain route: {case}")
+        del q, k, v, u, lg, beta, got, want
+    row = {k: v for k, v in cases[-1].items() if k != "tolerance"}
+    row.update(launches=sum(c["launches"] for c in cases),
+               launches_from="kda phase, the calls held against the plain route (timing calls "
+                             "not counted); phase kimi puts its encoder call's in their place")
     return cases, row
+
+
+def kimi_phase(seed: int, by_path: dict) -> dict:
+    """The Kimi Linear encoder's first layers through the port's entry
+    points, kernels against plain routes (module docstring). Records the
+    launches of its call under ``by_path["kimi_encoder"]``."""
+    import dataclasses
+    import zlib
+
+    from abstracts_search_tpu_torch.models import kimi_linear, moonlight, registry
+    from abstracts_search_tpu_torch.models.embed import EmbeddingPipeline
+    from abstracts_search_tpu_torch.models.stella import StellaConfig, StellaEncoder
+    from abstracts_search_tpu_torch.ops import experts, kda
+
+    hf = json.loads(KIMI_CONFIG.read_text())
+    enc = hf["encoder"]
+    hf.update(num_hidden_layers=len(KIMI_KDA_LAYERS) + len(KIMI_MLA_LAYERS),
+              linear_attn_config={**hf["linear_attn_config"], "kda_layers": list(KIMI_KDA_LAYERS),
+                                  "full_attn_layers": list(KIMI_MLA_LAYERS)})
+    dt = getattr(torch, enc["dtype"])
+    cfg = StellaConfig(backbone=dataclasses.replace(registry._backbone_config(hf), dtype=dt,
+                                                    param_dtype=dt),
+                       mrl_dim=enc["mrl_dim"], pooling="mean", causal=True, normalize=True)
+    model = StellaEncoder(cfg, device="cuda")
+    model.init_random_(torch.Generator(device="cuda").manual_seed(seed))
+    vocab = hf["vocab_size"]
+    pipe = EmbeddingPipeline(
+        cfg, model.state_dict(),
+        lambda text: [zlib.crc32(w.encode()) % (vocab - 2) + 2 for w in text.split()] or [1],
+        batch_size=enc["embed_batch"], buckets=enc["seq_buckets"], batch_buckets=True,
+        device="cuda")
+    del model
+    # 32 texts for each of the cell's forwards (the prompt adds a few words)
+    r = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(20_000)]
+    lengths = [*r.integers(150, 240, 32), *r.integers(300, 490, 32)]
+    texts = [" ".join(r.choice(words, int(n))) for n in lengths]
+    run = lambda: pipe.embed_queries(texts, prompt="s2s_query")  # noqa: E731
+
+    # the plain run takes the kernel run's choice of experts (each weighted
+    # by its own scores): a near-tie that bf16 rounding tips the other way
+    # would move a token by a whole expert's output
+    route, scan, swiglu, chosen = moonlight.route, kimi_linear.kda_scan, \
+        moonlight.grouped_swiglu, []
+
+    def recorded(x, w, b, c):
+        idx, wt = route(x, w, b, c)
+        chosen.append(idx)
+        return idx, wt
+
+    def replayed(x, w, b, c):
+        idx = chosen.pop(0)
+        wt = torch.sigmoid(x.float() @ w.float().T).gather(1, idx)
+        return idx, wt / (wt.sum(-1, keepdim=True) + 1e-20) * c.routed_scaling_factor
+
+    try:
+        moonlight.route = recorded
+        got = drive("kimi_encoder", run, ("kda", "experts"), by_path)
+        moonlight.route = route
+        ms = cuda_ms(run, reps=3, warmup=1)
+        chosen_n = len(chosen)
+        moonlight.route = replayed
+        kimi_linear.kda_scan = lambda *a: kda.kda_scan(*a, impl="torch")
+        moonlight.grouped_swiglu = lambda *a: experts.grouped_swiglu(*a, impl="torch")
+        want = run()
+    finally:
+        moonlight.route, kimi_linear.kda_scan, moonlight.grouped_swiglu = route, scan, swiglu
+    launched = by_path["kimi_encoder"]
+    forwards = len(pipe.plan(texts, "s2s_query"))
+    sparse = sum(1 for i in range(hf["num_hidden_layers"]) if i >= hf["first_k_dense_replace"])
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    case = {"layers": hf["num_hidden_layers"], "kda_layers": list(KIMI_KDA_LAYERS),
+            "forwards": forwards, "buckets": [ids.shape[1] for _, ids, _ in pipe.plan(
+                texts, "s2s_query")], "launches": launched, "routes_replayed": chosen_n,
+            "min_cos": float(cos.min()), "max_abs_err": float(np.abs(got - want).max()),
+            "call_ms": ms}
+    # each KDA layer launches its two kernels, each sparse layer the two
+    # expert kernels, in every forward
+    if (launched.get("kda") != 2 * len(KIMI_KDA_LAYERS) * forwards
+            or launched.get("experts") != 2 * sparse * forwards or chosen or not chosen_n):
+        raise AssertionError(f"the Kimi Linear encoder's call launched other kernels than its "
+                             f"layers: {case}")
+    # bf16 operands in both kernels against the f32 recurrence and expert
+    # loop: a few bf16 steps in the hidden states, averaged by the pooling,
+    # leave each text's cosine within 1e-4 of 1; 0.999 gives room tenfold
+    if float(cos.min()) < 0.999:
+        raise AssertionError(f"the Kimi Linear encoder's kernels disagree with its plain "
+                             f"routes: {case}")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return case
 
 
 # -- flat search (bench.py's configuration) ------------------------------------------
@@ -3663,7 +3846,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-rows", type=int, default=206_962_688)
     ap.add_argument("--phases",
-                    default="device,build,kernels,experts,flat,index_build,sharded_build,"
+                    default="device,build,kernels,experts,kda,kimi,flat,index_build,sharded_build,"
                             "ivf_flat,ingest,index,serve,stages_batch256,encoder,hybrid,host,"
                             "sharded,sharded_encoder,legacy",
                     help="comma-separated subset, for development runs")
@@ -3745,6 +3928,30 @@ def main() -> int:
         res, rows["experts"] = experts_phase(args.seed)
         emit({"phase": "experts", "seconds": time.perf_counter() - t, "cases": res,
               "kernels_row": rows["experts"]})
+
+    if "kda" in phases:
+        t = time.perf_counter()
+        res, rows["kda"] = kda_phase(args.seed)
+        emit({"phase": "kda", "seconds": time.perf_counter() - t, "cases": res,
+              "kernels_row": rows["kda"]})
+
+    if "kimi" in phases:
+        t = time.perf_counter()
+        res = kimi_phase(args.seed, by_path)
+        # the launches of the encoder's call are the KDA row's, and join
+        # the expert row's own
+        enc_launches = by_path.pop("kimi_encoder")
+        if "kda" in rows:
+            rows["kda"].update(launches=enc_launches["kda"],
+                               launches_from="kimi phase: the Kimi Linear encoder's first four "
+                                             "layers through EmbeddingPipeline.embed_queries, "
+                                             "two forwards")
+        if "experts" in rows:
+            rows["experts"]["launches"] += enc_launches["experts"]
+            rows["experts"]["launches_from"] += (
+                "; and the kimi phase's encoder call (the Kimi Linear encoder's first four "
+                "layers through EmbeddingPipeline.embed_queries)")
+        emit({"phase": "kimi", "seconds": time.perf_counter() - t, **res})
 
     if "flat" in phases:
         t = time.perf_counter()
@@ -3917,8 +4124,8 @@ def main() -> int:
 
     if set(KERNELS) <= set(rows):
         emit({"kernels": kernels_line(rows, by_path)})
-    elif {"kernels", "experts", "flat", "index_build", "ivf_flat", "index", "serve", "hybrid",
-          "host", "legacy"} <= phases:
+    elif {"kernels", "experts", "kda", "flat", "index_build", "ivf_flat", "index", "serve",
+          "hybrid", "host", "legacy"} <= phases:
         raise AssertionError(f"kernel rows missing: {set(KERNELS) - set(rows)}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
